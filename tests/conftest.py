@@ -26,6 +26,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: mega-fleet / subprocess tests, skipped unless --runslow")
+    config.addinivalue_line(
+        "markers",
+        "cuda: launches a CUDA kernel of repro_torch; skips without a GPU")
 
 
 def pytest_collection_modifyitems(config, items):
