@@ -6,6 +6,7 @@ from repro_torch.core.alternating import (
     fused_fixed_point,
     fused_fixed_point_flat,
     problem_elements,
+    select_best_bits,
     solve_joint,
     solve_joint_fused,
     solve_joint_trace,
@@ -29,7 +30,8 @@ from repro_torch.core.selection import optimal_selection
 
 __all__ = [
     "FleetElements", "JointSolution", "fused_fixed_point",
-    "fused_fixed_point_flat", "problem_elements", "solve_joint",
+    "fused_fixed_point_flat", "problem_elements", "select_best_bits",
+    "solve_joint",
     "solve_joint_fused", "solve_joint_trace", "solve_joint_optimal",
     "PowerSolution", "analytic_power", "dinkelbach_power", "energy_bound_ok",
     "GRAD_SIZE_BITS_FP32", "WirelessFLProblem", "sample_problem",

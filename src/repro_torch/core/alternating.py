@@ -17,13 +17,15 @@ Three implementations, as in ``repro.core.alternating``:
                           convergence-masked fixed point over the separable
                           (device, round) elements, closed-form power, the
                           eq.-10 gate and eq.-13 in one step; it stops when
-                          every element moved less than ``eps``.
+                          every element moved less than ``eps``.  With a
+                          ``bit_menu`` it also picks each element's uplink
+                          width (the joint bit/power/selection solve).
 
 The loops are python loops that read one flag from the device per step.
 The port runs on one device: ``mesh`` is refused and ``shard`` changes
 nothing but the code path, as in the reference on one device.  Warm
-starts (``init=``), the bit menu and ``sanitize=`` belong to later slices
-and raise ``NotImplementedError``.
+starts (``init=``) and ``sanitize=`` belong to later slices and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -58,6 +60,9 @@ class JointSolution(NamedTuple):
     converged: bool
     # total inner power-solver (Algorithm 1) iterations; 0 in analytic mode
     inner_iters: int = 0
+    # per-element uplink widths chosen by the bit-allocation step; set
+    # only when solving with a ``bit_menu``
+    bits: Optional[torch.Tensor] = None
 
 
 def _init_state(problem: WirelessFLProblem, shape):
@@ -235,6 +240,45 @@ def fused_init(el: FleetElements, *, s_bits: float, tau: float,
     return a0, p0
 
 
+def _menu_payloads(el: FleetElements, *, s_bits: float, bit_menu):
+    """Candidate effective payloads ``S b / 32`` for each menu width, in
+    descending width; a problem-level ``bits`` cap (``el.sbits``)
+    composes by elementwise minimum.  The descending order makes exact
+    ties resolve to the widest entry in :func:`select_best_bits`."""
+    menu = tuple(sorted({float(b) for b in bit_menu}, reverse=True))
+    if not menu or menu[0] > 32.0 or menu[-1] <= 0.0:
+        raise ValueError(f"bit_menu entries must lie in (0, 32], got {bit_menu!r}")
+    payloads = []
+    for b in menu:
+        s_b = s_bits * (b / 32.0)
+        if el.sbits is not None:
+            s_b = torch.clamp(el.sbits, max=s_b)
+        payloads.append(s_b)
+    return menu, payloads
+
+
+def select_best_bits(a_m: torch.Tensor, p_m: torch.Tensor,
+                     sbits_m: torch.Tensor, *, s_bits: float,
+                     atol: float = 1e-6):
+    """Closed-form bit allocation: argmax over per-element candidates.
+
+    ``a_m``/``p_m``/``sbits_m`` stack one converged candidate per menu
+    entry on a leading axis, in descending width.  Per element the chosen
+    entry is the first (widest) whose selection probability is within
+    ``atol`` of the best.  Returns ``(a, power, bits)`` with ``bits = 32
+    sbits / S``, the chosen effective width.
+    """
+    amax = torch.amax(a_m, dim=0)
+    # argmax of an integer mask: the first maximal index, the widest
+    near = (a_m >= amax[None] - atol).to(torch.int32)
+    idx = torch.argmax(near, dim=0)[None]
+
+    def take(x):
+        return torch.take_along_dim(x, idx, dim=0)[0]
+
+    return take(a_m), take(p_m), take(sbits_m) * (32.0 / s_bits)
+
+
 def fused_fixed_point(el: FleetElements, *, s_bits: float, tau: float,
                       p_max: float, eps: float = 1e-7, max_iters: int = 50,
                       power_solver: str = "analytic",
@@ -246,11 +290,32 @@ def fused_fixed_point(el: FleetElements, *, s_bits: float, tau: float,
     when every element moved less than ``eps``, or after ``max_iters``
     steps counted like ``solve_joint``.  Returns ``(a, power, n_iters,
     converged, inner_iters)`` with ``converged`` per element.
+
+    ``bit_menu`` (widths in (0, 32]) expands the elements with a leading
+    candidate axis, one slice per width, runs every candidate to its own
+    fixed point in the one loop, and reduces the axis with
+    :func:`select_best_bits`; the return value gains a trailing ``bits``.
     """
-    if bit_menu is not None:
-        _not_in_this_slice("bit_menu", "the bit-allocation slice")
     if init is not None:
         _not_in_this_slice("init= (warm starts)", "the serving slice")
+    if bit_menu is not None:
+        _, payloads = _menu_payloads(el, s_bits=s_bits, bit_menu=bit_menu)
+        m, shape = len(payloads), el.pg.shape
+
+        def expand(x):
+            return torch.broadcast_to(x[None], (m,) + tuple(shape))
+
+        sb = torch.stack([torch.broadcast_to(
+            torch.as_tensor(s_b, dtype=torch.float32, device=el.pg.device),
+            shape) for s_b in payloads])
+        el_m = FleetElements(pg=expand(el.pg), bw=expand(el.bw),
+                             emax=expand(el.emax), ec=expand(el.ec), sbits=sb)
+        a_m, p_m, iters, conv_m, inner = fused_fixed_point(
+            el_m, s_bits=s_bits, tau=tau, p_max=p_max, eps=eps,
+            max_iters=max_iters, power_solver=power_solver,
+            faithful_eq13_typo=faithful_eq13_typo)
+        a, p, bits = select_best_bits(a_m, p_m, sb, s_bits=s_bits)
+        return a, p, iters, torch.all(conv_m, dim=0), inner, bits
     a0, _ = fused_init(el, s_bits=s_bits, tau=tau, p_max=p_max,
                        faithful_eq13_typo=faithful_eq13_typo)
     step = functools.partial(_fused_step, el=el, s_bits=s_bits, tau=tau,
@@ -288,7 +353,8 @@ def fused_fixed_point_flat(el: FleetElements, *, s_bits: float, tau: float,
     to whole chunks (padding self-deselects) and solved chunk by chunk,
     each chunk with its own stopping rule.  ``n_iters`` is the largest
     chunk's count and ``inner_iters`` the sum.  ``mesh`` is refused (one
-    device); ``shard`` is a no-op on one device.
+    device); ``shard`` is a no-op on one device.  With a ``bit_menu`` the
+    return value gains a trailing flat ``bits``.
     """
     if el.pg.ndim != 1:
         raise ValueError("fused_fixed_point_flat takes flat [E] elements")
@@ -310,9 +376,10 @@ def fused_fixed_point_flat(el: FleetElements, *, s_bits: float, tau: float,
         chunk = FleetElements(**{f: x[lo:lo + chunk_elements]
                                  for f, x in padded.items()})
         outs.append(fused_fixed_point(chunk, **kw))
-    a, p, iters, conv, inner = zip(*outs)
-    return (torch.cat(a)[:e], torch.cat(p)[:e], max(iters),
-            torch.cat(conv)[:e], sum(inner))
+    a, p, iters, conv, inner, *bits = zip(*outs)
+    out = (torch.cat(a)[:e], torch.cat(p)[:e], max(iters),
+           torch.cat(conv)[:e], sum(inner))
+    return out if bit_menu is None else out + (torch.cat(bits[0])[:e],)
 
 
 def solve_joint_fused(problem: WirelessFLProblem, *, eps: float = 1e-7,
@@ -326,7 +393,9 @@ def solve_joint_fused(problem: WirelessFLProblem, *, eps: float = 1e-7,
 
     Matches ``solve_joint`` to solver tolerance (<= 1e-5 on a*, P* and
     the objective).  ``chunk_elements``/``mesh``/``shard`` go to
-    :func:`fused_fixed_point_flat`.
+    :func:`fused_fixed_point_flat`.  ``bit_menu`` (e.g. ``(8, 16, 32)``)
+    adds the bit-allocation step, and ``JointSolution.bits`` carries the
+    chosen widths; ``None`` runs the solve without it, ``bits=None``.
     """
     if sanitize:
         _not_in_this_slice("sanitize=True", "the fault-handling slice")
@@ -338,13 +407,14 @@ def solve_joint_fused(problem: WirelessFLProblem, *, eps: float = 1e-7,
               faithful_eq13_typo=faithful_eq13_typo, init=init,
               bit_menu=bit_menu)
     if chunk_elements is None and not shard and mesh is None:
-        a, p, iters, conv, inner = fused_fixed_point(el, **kw)
+        a, p, iters, conv, inner, *bits = fused_fixed_point(el, **kw)
     else:
         flat = FleetElements(*(None if x is None else x.reshape(-1)
                                for x in el))
-        a, p, iters, conv, inner = fused_fixed_point_flat(
+        a, p, iters, conv, inner, *bits = fused_fixed_point_flat(
             flat, chunk_elements=chunk_elements, mesh=mesh, shard=shard, **kw)
         a, p, conv = a.reshape(shape), p.reshape(shape), conv.reshape(shape)
+        bits = [b.reshape(shape) for b in bits]
     return JointSolution(a=a, power=p, objective=problem.objective(a),
                          n_iters=iters, converged=bool(torch.all(conv)),
-                         inner_iters=inner)
+                         inner_iters=inner, bits=bits[0] if bits else None)

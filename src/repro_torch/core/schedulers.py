@@ -18,13 +18,13 @@ powers and the aggregation weights alpha_i of the server update (eq. 4):
 Random draws come from the ``torch.Generator`` the caller passes (the
 reference's ``jax.random`` streams cannot be reproduced; callers that need
 the reference's draws pass its masks to the FL engines).  The
-channel-aware schedulers (greedy, Lyapunov), the batched methods, warm
-starts and the bit menu come with later slices.
+channel-aware schedulers (greedy, Lyapunov), the batched methods and
+warm starts come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -75,20 +75,27 @@ class ProbabilisticScheduler:
     """The paper's joint probabilistic selection + power allocation.
 
     ``solver`` names the joint solve: "alternating" (paper), "fused" or
-    "optimal" (exact).
+    "optimal" (exact).  ``bit_menu`` (uplink widths, e.g. ``(8, 16,
+    32)``) adds the bit-allocation step; only the fused solver has it.
     """
 
     solver: str = "alternating"
     power_solver: str = "dinkelbach"   # "dinkelbach" (paper) | "analytic"
     unbiased_aggregation: bool = False  # beyond-paper alpha_i / a_i correction
     faithful_eq13_typo: bool = False
+    bit_menu: Optional[tuple] = None
 
     def solve(self, problem: WirelessFLProblem) -> JointSolution:
+        if self.bit_menu is not None and self.solver != "fused":
+            raise ValueError(
+                f"bit_menu is implemented by the fused single-level solver "
+                f"only; solver={self.solver!r} would silently ignore it")
         if self.solver == "optimal":
             return solve_joint_optimal(problem)
         if self.solver == "fused":
             return solve_joint_fused(problem,
-                                     faithful_eq13_typo=self.faithful_eq13_typo)
+                                     faithful_eq13_typo=self.faithful_eq13_typo,
+                                     bit_menu=self.bit_menu)
         if self.solver == "alternating":
             return solve_joint(problem, power_solver=self.power_solver,
                                faithful_eq13_typo=self.faithful_eq13_typo)

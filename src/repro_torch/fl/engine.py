@@ -24,8 +24,16 @@ This python-loop engine is the reference path; sweeps use
 ``torch.Generator`` seeded with ``config.seed``, or from ``masks=`` given
 by the caller (the reference's ``jax.random`` draws cannot be
 reproduced, so parity runs pass them in).  The minibatch schedule is the
-reference's numpy stream.  Uplink quantisation (the reference's
-``uplink_bits``) comes with a later slice.
+reference's numpy stream.
+
+``FLConfig.uplink_bits`` stochastically rounds every client's gradient
+to b bits before the stacked path's sum (the reference's quantised
+uplink).  Round k's uniform noise comes from a generator of its own,
+seeded from ``(config.seed, k)`` on the gradients' device
+(:func:`quantizer_generator`), drawn leaf by leaf in sorted-key order,
+one ``[N, *leaf_shape]`` draw per leaf; the sweep engine draws the same
+stream, so the two engines agree.  Parity runs pass the reference's
+draws in instead (``noise=``).
 """
 from __future__ import annotations
 
@@ -38,7 +46,10 @@ import torch
 from repro_torch.core.problem import WirelessFLProblem, div
 from repro_torch.data.synthetic import Dataset
 from repro_torch.device import resolve_device
-from repro_torch.kernels.masked_aggregate.ops import masked_aggregate_pytree
+from repro_torch.kernels.masked_aggregate.ops import (
+    masked_aggregate_pytree, quantized_aggregate_pytree, row_scale,
+    uniform_noise_like)
+from repro_torch.kernels.masked_aggregate.ref import quantizer_levels, stochastic_round
 from repro_torch.models import cnn
 from repro_torch.tree import tree_map
 
@@ -54,6 +65,10 @@ class FLConfig:
     # divide eq. (4)'s coefficients by sum_i alpha_i m_i (FedAvg
     # weighting); False is the paper's verbatim fixed alpha_i
     renormalize: bool = True
+    # quantise each client's uplink gradient to this many bits
+    # (stochastic rounding, per-client max scaling) before the server
+    # sum; None = fp32 uplink (paper).  Requires aggregate="stacked".
+    uplink_bits: Optional[int] = None
     seed: int = 0
 
 
@@ -97,9 +112,72 @@ def _sgd(params: dict, grads: dict, lr: float) -> dict:
     return tree_map(lambda p, g: p - lr * g, params, grads)
 
 
+def quantize_levels(bits):
+    """Symmetric quantiser level count for a ``bits``-wide payload,
+    max(2^(b-1) - 1, 1): the floor of one level makes bits = 1 ternary
+    sign quantisation.  A python number for a python ``bits`` (which
+    must be >= 1), a float32 tensor for a tensor."""
+    if isinstance(bits, (int, float)):
+        if bits < 1:
+            raise ValueError(f"uplink quantisation needs bits >= 1, got {bits}")
+        return max(2.0 ** (bits - 1) - 1.0, 1.0)
+    return quantizer_levels(bits)
+
+
+def quantize_with_noise(g: torch.Tensor, noise: torch.Tensor, bits) -> torch.Tensor:
+    """Stochastic rounding of ``g`` to ``bits`` at one scale,
+    max(|g|) / L, given uniform(0,1) ``noise`` of g's shape."""
+    levels = torch.as_tensor(quantize_levels(bits), dtype=torch.float32,
+                             device=g.device)
+    return stochastic_round(g, noise, row_scale(g.reshape(-1), levels), levels)
+
+
+def quantize_stochastic(g: torch.Tensor, generator: torch.Generator,
+                        bits) -> torch.Tensor:
+    """Per-tensor max-scaled b-bit stochastic rounding, its noise drawn
+    from ``generator`` (on g's device)."""
+    noise = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+    return quantize_with_noise(g, noise.uniform_(generator=generator), bits)
+
+
+def quantizer_generator(seed: int, k: int, device) -> torch.Generator:
+    """The generator of round ``k``'s quantiser noise in a trajectory
+    seeded with ``seed``: seeded from ``(seed, k)`` alone, so the stream
+    does not depend on which earlier rounds drew noise."""
+    state = np.random.SeedSequence((seed, k)).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def _quantize_tree(gstack, bits, *, generator=None, noise=None):
+    """Quantise stacked per-client gradients leaf by leaf, each client
+    row at its own scale.  ``bits`` is a number (every client alike) or
+    a per-client ``[N]`` tensor; the noise is the tree ``noise`` or is
+    drawn from ``generator`` as the fused aggregation draws it."""
+    if noise is None:
+        noise = uniform_noise_like(gstack, generator)
+
+    def one(g, u):
+        n = g.shape[0]
+        flat = g.reshape(n, -1)
+        levels = torch.broadcast_to(
+            torch.as_tensor(quantize_levels(bits), dtype=torch.float32,
+                            device=g.device), (n,))
+        scale = row_scale(flat, levels)
+        u = torch.as_tensor(u, device=g.device).reshape(n, -1)
+        return stochastic_round(flat, u, scale[:, None],
+                                levels[:, None]).reshape(g.shape)
+
+    return tree_map(one, gstack, noise)
+
+
 def check_config(config: FLConfig) -> None:
     if config.aggregate not in ("fused", "stacked"):
         raise ValueError(f"unknown aggregate mode {config.aggregate!r}")
+    if config.uplink_bits is not None:
+        quantize_levels(config.uplink_bits)
+        if config.aggregate != "stacked":
+            raise ValueError("uplink_bits requires aggregate='stacked' "
+                             "(per-client gradients must exist to quantise)")
 
 
 # -------------------------------------------------------------------- engine
@@ -114,14 +192,22 @@ def run_fl(problem: WirelessFLProblem,
            init_params: Any | None = None,
            *,
            masks: Optional[np.ndarray] = None,
+           noise: Optional[Sequence] = None,
            device=None) -> FLResult:
     """Simulate Algorithm 3 with exact paper time/energy accounting.
 
     ``masks`` ([K, N] bool) replaces the scheduler's participation draws;
-    ``aggregate_fn(gstack, coef)`` replaces the stacked path's
-    ``masked_aggregate_pytree``.
+    ``noise`` (one tree of ``[N, ...]`` uniform(0,1) arrays per round)
+    replaces the quantiser's draws under ``uplink_bits``.
+    ``aggregate_fn(gstack, coef)`` replaces the stacked path's sum,
+    ``masked_aggregate_pytree``, or under ``uplink_bits`` the fused
+    ``quantized_aggregate_pytree``, which then becomes quantise-then-
+    ``aggregate_fn``.
     """
     check_config(config)
+    if noise is not None and (config.uplink_bits is None
+                              or len(noise) != config.n_rounds):
+        raise ValueError("noise= needs uplink_bits and one tree per round")
     dev = resolve_device(device)
     problem = problem.to(dev)
     n = problem.n_devices
@@ -204,8 +290,18 @@ def run_fl(problem: WirelessFLProblem,
                 grads = torch.func.grad(cnn.loss_fn)(
                     params, images.reshape(n * b, 28, 28, 1),
                     labels.reshape(n * b), sw)
-            else:
+            elif config.uplink_bits is None:
                 grads = aggregate(client_grads(params, images, labels), coef)
+            else:
+                gstack = client_grads(params, images, labels)
+                src = (dict(generator=quantizer_generator(config.seed, k, dev))
+                       if noise is None else dict(noise=noise[k]))
+                if aggregate_fn is None:
+                    grads = quantized_aggregate_pytree(
+                        gstack, coef, config.uplink_bits, **src)
+                else:
+                    grads = aggregate_fn(
+                        _quantize_tree(gstack, config.uplink_bits, **src), coef)
             params = _sgd(params, grads, config.lr)
 
         if (k + 1) % config.eval_every == 0 or k == config.n_rounds - 1:

@@ -16,7 +16,11 @@ with ``config.seed`` in the order ``run_fl`` draws them (or are given by
 the caller), and the minibatch schedule is the reference's numpy stream,
 so a sweep reproduces ``run_fl`` to float tolerance.
 
-Upload drops (``drops``), per-device bit widths (``bits``) and
+A plan with a ``bits`` table trains with a quantised uplink: each round
+every client's gradient is stochastically rounded to its width and
+summed by the ``quantized_masked_aggregate`` wrapper, with the noise of
+``run_fl``'s stream (``engine.quantizer_generator``, seeded per
+trajectory seed and round).  Upload drops (``drops``) and
 ``plans_from_batch`` come with later slices.
 """
 from __future__ import annotations
@@ -39,8 +43,10 @@ from repro_torch.core.schedulers import (
 )
 from repro_torch.data.synthetic import Dataset
 from repro_torch.device import resolve_device
-from repro_torch.fl.engine import FLConfig, FLHistory, FLResult, check_config
-from repro_torch.kernels.masked_aggregate.ops import masked_aggregate_pytree
+from repro_torch.fl.engine import (FLConfig, FLHistory, FLResult, check_config,
+                                   quantizer_generator)
+from repro_torch.kernels.masked_aggregate.ops import (masked_aggregate_pytree,
+                                                      quantized_aggregate_pytree)
 from repro_torch.models import cnn
 from repro_torch.tree import tree_map
 
@@ -56,7 +62,8 @@ class TrajectoryPlan:
 
     Per-round tables are ``[K, N]`` (round-major); ``stack_plans`` adds a
     leading trajectory axis to every field.  ``masks`` takes the place of
-    the reference's PRNG key: it holds the draws themselves.
+    the reference's PRNG key: it holds the draws themselves.  ``bits``,
+    when present, switches the trajectory to the quantised uplink.
     """
 
     probs: torch.Tensor         # [K, N] selection probabilities a_ik
@@ -69,6 +76,8 @@ class TrajectoryPlan:
     lr: torch.Tensor            # scalar f32 learning rate
     unbiased: torch.Tensor      # scalar bool: alpha_i / a_ik correction
     dataset_id: torch.Tensor    # scalar int64 row into the stacked datasets
+    seed: torch.Tensor          # scalar int64 config.seed: the quantiser noise
+    bits: Optional[torch.Tensor] = None  # [K, N] f32 uplink widths b_ik
 
     @property
     def n_rounds(self) -> int:
@@ -79,8 +88,10 @@ class TrajectoryPlan:
         return int(self.probs.shape[-1])
 
     def to(self, device) -> "TrajectoryPlan":
-        return TrajectoryPlan(**{f.name: getattr(self, f.name).to(device)
-                                 for f in dataclasses.fields(self)})
+        return TrajectoryPlan(**{
+            f.name: None if getattr(self, f.name) is None
+            else getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)})
 
 
 class SweepResult(NamedTuple):
@@ -143,15 +154,29 @@ def plan_trajectory(problem: WirelessFLProblem,
                     *,
                     state: Optional[SchedulerState] = None,
                     dataset_id: int = 0,
-                    masks: Optional[np.ndarray] = None) -> TrajectoryPlan:
+                    masks: Optional[np.ndarray] = None,
+                    bits=None) -> TrajectoryPlan:
     """Build one trajectory's plan (on the host), mirroring ``run_fl``.
 
     ``state`` reuses one ``precompute`` across many seeds.  ``masks``
     ([K, N] bool) replaces the draws from ``config.seed``'s generator.
     The minibatch schedule consumes ``np.random.default_rng(config.seed)``
     exactly as ``run_fl`` does (draws only on rounds with a participant).
+
+    ``bits`` is an optional ``[N]`` or ``[N, K]`` uplink width table (e.g.
+    ``solve_joint_fused(..., bit_menu=...)``'s choice); ``config.uplink_bits``
+    is shorthand for a uniform one.  Either needs ``aggregate='stacked'``.
     """
     check_config(config)
+    if config.uplink_bits is not None:
+        if bits is not None:
+            raise ValueError(
+                "pass either config.uplink_bits (uniform) or a per-device "
+                "bits table, not both")
+        bits = np.full(problem.n_devices, float(config.uplink_bits), np.float32)
+    if bits is not None and config.aggregate != "stacked":
+        raise ValueError("uplink quantisation requires aggregate='stacked' "
+                         "(per-client gradients must exist to quantise)")
     n = problem.n_devices
     if len(parts) != n:
         raise ValueError(f"{len(parts)} client partitions for {n} devices")
@@ -199,6 +224,11 @@ def plan_trajectory(problem: WirelessFLProblem,
         lr=torch.tensor(config.lr, dtype=torch.float32),
         unbiased=torch.tensor(unbiased),
         dataset_id=torch.tensor(dataset_id, dtype=torch.int64),
+        seed=torch.tensor(config.seed, dtype=torch.int64),
+        bits=None if bits is None else _per_round(
+            bits if isinstance(bits, torch.Tensor)
+            else torch.from_numpy(np.array(bits, np.float32)),
+            k_rounds, "bit-width table"),
     )
 
 
@@ -206,6 +236,10 @@ def stack_plans(plans: Sequence[TrajectoryPlan]) -> TrajectoryPlan:
     """Stack per-trajectory plans along a new leading sweep axis."""
     if not plans:
         raise ValueError("stack_plans needs at least one plan")
+    if 0 < sum(p.bits is not None for p in plans) < len(plans):
+        raise ValueError(
+            "cannot stack plans with and without bit-width tables; give "
+            "the full-precision plans an all-32 [K, N] bits table")
     ref = plans[0]
     for p in plans[1:]:
         if (p.n_rounds, p.n_devices, p.batch_idx.shape) != (
@@ -215,7 +249,8 @@ def stack_plans(plans: Sequence[TrajectoryPlan]) -> TrajectoryPlan:
                 f"batch_per_client); got {tuple(p.probs.shape)} vs "
                 f"{tuple(ref.probs.shape)}")
     return TrajectoryPlan(**{
-        f.name: torch.stack([getattr(p, f.name) for p in plans])
+        f.name: None if getattr(ref, f.name) is None
+        else torch.stack([getattr(p, f.name) for p in plans])
         for f in dataclasses.fields(TrajectoryPlan)})
 
 
@@ -227,9 +262,13 @@ def _eval_rounds(config: FLConfig) -> tuple[int, ...]:
                  if (k + 1) % config.eval_every == 0 or k == config.n_rounds - 1)
 
 
-def _grid_grads(params, images, labels, coef, fused: bool):
+def _grid_grads(params, images, labels, coef, fused: bool, bits=None,
+                **noise_src):
     """The aggregated eq.-4 gradient of every trajectory: params leaves
-    [T, ...], images [T, N, b, 28, 28, 1], labels [T, N, b], coef [T, N]."""
+    [T, ...], images [T, N, b, 28, 28, 1], labels [T, N, b], coef [T, N].
+    With ``bits`` ([T, N]) every client's gradient is quantised in the
+    sum, its noise from ``generator=`` (one per trajectory) or
+    ``noise=``."""
     t, n, b = labels.shape
     grad = torch.func.grad(cnn.loss_fn)
     if fused:
@@ -239,6 +278,8 @@ def _grid_grads(params, images, labels, coef, fused: bool):
             labels.reshape(t, n * b), sw)
     client = torch.func.vmap(grad, in_dims=(None, 0, 0))
     gstack = torch.func.vmap(client)(params, images, labels)   # [T, N, ...]
+    if bits is not None:
+        return quantized_aggregate_pytree(gstack, coef, bits, **noise_src)
     return masked_aggregate_pytree(gstack, coef)
 
 
@@ -266,20 +307,36 @@ def run_fl_sweep(plans: TrajectoryPlan,
                  init_params: Any,
                  *,
                  shard: bool = True,
+                 noise: Optional[Sequence] = None,
                  device=None) -> SweepResult:
     """Run every trajectory of a stacked plan, all rounds in lockstep.
 
     ``init_params`` is a stacked params tree ([T, ...] leaves, see
     ``init_sweep_params``); ``train``/``test`` are one shared dataset or
     one per ``dataset_id``.  The stacked path's eq.-4 sum is the
-    ``masked_aggregate`` wrapper, so it runs the kernel on the card (the
-    reference's ``use_kernel=True``).  ``shard`` is a no-op: the port
-    runs on one device.
+    ``masked_aggregate`` wrapper, or with a ``bits`` table the
+    ``quantized_masked_aggregate`` one, so it runs the kernel on the
+    card (the reference's ``use_kernel=True``).  ``noise`` (one tree of
+    ``[T, N, ...]`` uniform(0,1) arrays per round) replaces the
+    quantiser's draws.  ``shard`` is a no-op: the port runs on one
+    device.
     """
     check_config(config)
     if plans.n_rounds != config.n_rounds:
         raise ValueError(f"plan has {plans.n_rounds} rounds, "
                          f"config.n_rounds={config.n_rounds}")
+    quantized = plans.bits is not None
+    if quantized and config.aggregate != "stacked":
+        raise ValueError("quantized plans (bits tables) require "
+                         "aggregate='stacked'")
+    if config.uplink_bits is not None and not quantized:
+        raise ValueError("config.uplink_bits is set but the stacked plans "
+                         "carry no bits table; build them with "
+                         "plan_trajectory(..., config) so the table exists")
+    if noise is not None and (not quantized or len(noise) != config.n_rounds):
+        raise ValueError("noise= needs plans with a bits table and one tree "
+                         "per round")
+    seeds = plans.seed.tolist()
     dev = resolve_device(device)
     plans = plans.to(dev)
     params = tree_map(lambda x: x.to(dev), init_params)
@@ -314,8 +371,14 @@ def run_fl_sweep(plans: TrajectoryPlan,
         if config.renormalize:
             coef = coef / torch.clamp(coef.sum(dim=1, keepdim=True), min=1e-12)
         idx = plans.batch_idx[:, k]                    # [T, N, b]
+        quant = {}
+        if quantized:
+            quant = (dict(noise=noise[k]) if noise is not None else
+                     dict(generator=[quantizer_generator(s, k, dev)
+                                     for s in seeds]))
+            quant["bits"] = plans.bits[:, k]
         grads = _grid_grads(params, train_x[rows, idx], train_y[rows, idx],
-                            coef, fused)
+                            coef, fused, **quant)
         # an all-zero coef (empty round) makes grads exactly zero, so the
         # update is a no-op — the reference loop's skip
         params = tree_map(

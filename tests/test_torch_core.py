@@ -352,8 +352,8 @@ def test_fused_chunked_path_matches_reference_chunked():
 
 def test_unported_options_raise():
     p = problem.sample_problem(0, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="bit_menu"):
-        alternating.solve_joint_fused(p, bit_menu=(8, 32))
+    with pytest.raises(ValueError, match="bit_menu"):
+        alternating.solve_joint_fused(p, bit_menu=(8, 64))
     with pytest.raises(NotImplementedError, match="init"):
         alternating.solve_joint(p, init=(p.weights, p.weights))
     with pytest.raises(NotImplementedError, match="sanitize"):
