@@ -13,8 +13,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. hold each kernel against its plain PyTorch version on the card, at the
    slices' shapes and at ragged ones, within the stated tolerance;
 3. time each kernel with CUDA events beside its bound, its plain version
-   and (for the plain aggregate) one PyTorch library call, and profile a
-   few rounds of each sweep;
+   and (for the plain aggregate and the decode attention) one PyTorch
+   library call, and profile a few rounds of each sweep;
 4. drive the first slice: ``run_grid`` over both paper scenarios and all
    four strategies at N = 100 devices with the 199,213-parameter CNN, the
    fused-kernel solve and the kernel aggregate, plus one exact
@@ -25,7 +25,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    allocation over (8, 16, 32), a fixed 8-bit and a fixed 4-bit uplink)
    whose every round's server sum is the quantised kernel, and hold the
    loop engine against the sweep at 8 bits on the card;
-6. print the kernel record, the card, and the last line
+6. drive the serving slice: gemma3-1b at full width (999,826,048
+   parameters from a seeded generator), first teacher-forced decode
+   against ``forward`` over 640 tokens, then ``BatchedServer`` on 8
+   requests at 24 and at 600 new tokens, every attention layer of every
+   decode step through the decode kernel, and profile a few steps;
+7. print the kernel record, the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero without a CUDA device and
@@ -61,6 +66,17 @@ QUANT_OPS = 11
 SOLVE_TOL = 1e-5        # a* and P*: the reference's solver tolerance
 AGG_TOL = 1e-5          # eq.-4 sum of O(1) values, same order of addition
 QUANT_TOL = 0.0         # the quantised sum: same arithmetic, same order
+DECODE_TOL = 2e-5       # decode attention: the reference's float32 tolerance
+SELF_CHECK_TOL = 1e-3   # full-width decode logits against forward's
+# gemma3-1b's attention: MQA, one KV head for G = 4 query heads of 256
+GEMMA3_HEADS = (1, 4, 256)
+SERVE_GENS = (24, 600)  # the reference server's default, and past the window
+# decode timings at gemma3's heads beyond the serving step: (B, W, window,
+# distinct caches, repetitions); the serving runs' caches (W 88 at gen 24,
+# 512 and 664 at gen 600) and a long cache at a larger batch
+DECODE_TIMING_SHAPES = ((4, 88, None, 64, 50), (4, 88, 512, 64, 50),
+                        (4, 512, 512, 32, 50), (4, 664, None, 24, 50),
+                        (16, 512, 512, 8, 50), (16, 32768, None, 1, 20))
 # the CNN's parameter leaves (conv1 w/b, conv2 w/b, fc1 w/b, fc2 w/b)
 CNN_LEAVES = (72, 8, 1152, 16, 195216, 249, 2490, 10)
 # the quantised slice: the joint bit allocation's menu, and the schemes
@@ -596,6 +612,249 @@ def check_quantized_loop(torch, dev) -> None:
           "loop and sweep parameters differ by more than a level")
 
 
+# --------------------------------------------------------- decode attention
+
+def ring_positions(torch, w: int, qpos: int, dev):
+    """pos_buf of a ring of W slots after writing positions 0..qpos: slot
+    s holds the latest position p <= qpos with p % W == s, or -1."""
+    latest = qpos - (qpos - torch.arange(w, device=dev)) % w
+    return torch.where(latest >= 0, latest, -1).to(torch.int32)
+
+
+def decode_operands(torch, dev, b, w, hkv, g, dh, seed):
+    """q [B, Hkv, G, dh] pre-scaled by dh^-0.5, k and v [B, W, Hkv, dh]."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, hkv, g, dh, device=dev, generator=gen) * dh ** -0.5
+    k = torch.randn(b, w, hkv, dh, device=dev, generator=gen)
+    v = torch.randn(b, w, hkv, dh, device=dev, generator=gen)
+    return q, k, v
+
+
+def check_decode(torch, dev) -> float:
+    """The decode kernel against its plain version at the reference kernel
+    tests' shapes (last 3 slots empty), at gemma3's heads for rings that
+    are filling, full or wrapped (any W, either mask; W = 88 is the
+    serving run's 64 + 24 cache, 512 and 664 its gen-600 caches), and at the
+    reduced configs' head widths."""
+    from repro_torch.kernels.swa_decode import ops, ref
+    cases = []
+    for w, hkv, g, dh, window in ((512, 4, 4, 64, None), (1024, 2, 8, 128, 300),
+                                  (512, 1, 4, 128, 128), (256, 8, 1, 64, None)):
+        pos = torch.where(torch.arange(w, device=dev) < w - 3,
+                          torch.arange(w, device=dev), -1).to(torch.int32)
+        cases.append((2, w, hkv, g, dh, window, w + 5, pos))
+    for w in (88, 96, 97, 512, 664, 4096):
+        for window in (None, 512):
+            for qpos in (w // 2, w - 1, w + 37):
+                cases.append((4, w, *GEMMA3_HEADS, window, qpos,
+                              ring_positions(torch, w, qpos, dev)))
+    for b, w, hkv, g, dh, window, qpos in ((2, 70, 1, 4, 64, None, 69),
+                                           (2, 64, 1, 4, 16, 64, 129),
+                                           (3, 130, 2, 3, 80, 64, 200)):
+        cases.append((b, w, hkv, g, dh, window, qpos,
+                      ring_positions(torch, w, qpos, dev)))
+    worst = 0.0
+    for i, (b, w, hkv, g, dh, window, qpos, pos) in enumerate(cases):
+        q, k, v = decode_operands(torch, dev, b, w, hkv, g, dh, i)
+        out = ops.swa_decode(q, k, v, pos, qpos, window=window)
+        plain = ref.swa_decode_ref(q, k, v, pos, qpos, window=window)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        ok = bool(torch.isfinite(out).all()) and bool(torch.allclose(
+            out, plain, rtol=DECODE_TOL, atol=DECODE_TOL))
+        print(f"  swa_decode B={b} W={w:>5} Hkv={hkv} G={g} dh={dh:>3} "
+              f"window={window} qpos={qpos:>5}: max|kernel - plain| = "
+              f"{err:.3e} (rtol = atol = {DECODE_TOL:g})")
+        check(ok, f"swa_decode W={w} G={g} dh={dh} window={window}: "
+                  f"error {err} beyond {DECODE_TOL}")
+        worst = max(worst, err)
+    return worst
+
+
+def decode_bound(b, w, hkv, g, dh) -> tuple[float, str]:
+    """K and V read once, q read and out written once, pos read once;
+    2 x 2 operations per (query row, slot, column) and 5 per score."""
+    h = hkv * g
+    nbytes = (2 * b * w * hkv * dh + 2 * b * h * dh + w) * 4
+    return bound_ms(nbytes, 4 * b * h * w * dh + 5 * b * h * w)
+
+
+def time_decode(torch, dev) -> dict:
+    """CUDA-event times of the decode kernel, its plain version and one
+    library call (scaled_dot_product_attention with the boolean mask and
+    enable_gqa) on the same full rings.  Each shape gets enough distinct
+    caches (at least 256 MB) that every launch reads its K and V from
+    device memory, as the serving step's 26 layers do."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.swa_decode import ops, ref
+
+    def shape_calls(b, w, window, copies, seed):
+        qpos = 2 * w - 1                      # every slot valid: a full ring
+        pos = ring_positions(torch, w, qpos, dev)
+        ops_ = [decode_operands(torch, dev, b, w, *GEMMA3_HEADS, seed + i)
+                for i in range(copies)]
+        valid = (pos >= 0) & (pos <= qpos)
+        if window is not None:
+            valid &= pos > qpos - window
+        mask = valid[None, None, None, :]
+        h = GEMMA3_HEADS[0] * GEMMA3_HEADS[1]
+        kern = [lambda q=q, k=k, v=v: ops.swa_decode(q, k, v, pos, qpos, window=window)
+                for q, k, v in ops_]
+        plain = [lambda q=q, k=k, v=v: ref.swa_decode_ref(q, k, v, pos, qpos,
+                                                          window=window)
+                 for q, k, v in ops_]
+        lib = [lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                   q.reshape(b, h, 1, -1), k.transpose(1, 2), v.transpose(1, 2),
+                   attn_mask=mask, scale=1.0, enable_gqa=True)
+               for q, k, v in ops_]
+        lib_err = float((lib[0]().reshape(ops_[0][0].shape) - plain[0]()).abs().max())
+        return kern, plain, lib, lib_err
+
+    def timed(calls, reps):
+        return cuda_ms(torch, lambda: [c() for c in calls], reps)
+
+    b, hkv, g, dh = 4, *GEMMA3_HEADS
+    # one decode step of the gen-600 serving run near its end: 22 local
+    # rings of 512 (window 512) and 4 global caches of 664, all full
+    local = shape_calls(b, 512, 512, 22, 100)
+    glob = shape_calls(b, 664, None, 4, 200)
+    step = [x + y for x, y in zip(local[:3], glob[:3])]
+    ms, plain_ms, lib_ms = (timed(step[0], 50), timed(step[1], 5),
+                            timed(step[2], 20))
+    lb, _ = decode_bound(b, 512, hkv, g, dh)
+    gb, by = decode_bound(b, 664, hkv, g, dh)
+    b_ms = 22 * lb + 4 * gb
+    print(f"  swa_decode one serving step (26 launches: 22 x B=4 W=512 window 512, "
+          f"4 x B=4 W=664): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, SDPA "
+          f"{lib_ms:.6f} ms (max|SDPA - plain| {max(local[3], glob[3]):.2e}), "
+          f"bound {b_ms:.6f} ms ({by}); kernel at {b_ms / ms:.3f} of its bound")
+    rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+               library_ms=lib_ms)
+    for bb, w, window, copies, reps in DECODE_TIMING_SHAPES:
+        kern, plain, lib, lib_err = shape_calls(bb, w, window, copies, w)
+        k_ms = timed(kern, reps) / copies
+        p_ms = timed(plain, max(reps // 10, 2)) / copies
+        l_ms = timed(lib, reps) / copies
+        s_ms, s_by = decode_bound(bb, w, hkv, g, dh)
+        print(f"  swa_decode B={bb:>2} W={w:>5} window={window}: kernel {k_ms:.6f} "
+              f"ms, plain {p_ms:.6f} ms, SDPA {l_ms:.6f} ms (max|SDPA - plain| "
+              f"{lib_err:.2e}), bound {s_ms:.6f} ms ({s_by}); kernel at "
+              f"{s_ms / k_ms:.3f} of its bound")
+        del kern, plain, lib
+    return rec
+
+
+def serve_gemma3(torch, dev) -> dict:
+    """The serving slice's main path at full width, with the launch count
+    zeroed just before each serve run and read just after it."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models import transformer as T
+    from repro_torch.models import zoo
+    from repro_torch.tree import tree_leaves
+    cfg = get_arch("gemma3-1b")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    n = sum(x.numel() for x in tree_leaves(params))
+    print(f"  {cfg.name}: {n:,} parameters on the card in "
+          f"{time.perf_counter() - t0:.3f} s ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab:,}, window {cfg.attn.window})")
+    check(n == zoo.param_count(cfg), f"{n} parameters, not {zoo.param_count(cfg)}")
+
+    # self-check: teacher-forced decode (the kernel) against forward (plain
+    # attention, float32 products) over 640 tokens, past the 512 window
+    b, s = 2, 640
+    tokens = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    t0 = time.perf_counter()
+    full, _ = T.forward(cfg, params, {"tokens": tokens})
+    cache = T.init_cache(cfg, b, s, device=dev)
+    err = torch.zeros((), device=dev)
+    for i in range(s):
+        logits, cache = T.decode_step(cfg, params, cache, tokens[:, i:i + 1], i)
+        err = torch.maximum(err, (logits[:, 0] - full[:, i]).abs().max())
+    err = float(err)
+    check(bool(torch.isfinite(full).all()), "non-finite forward logits")
+    print(f"  teacher-forced decode vs forward, B={b} S={s}: max|logits| "
+          f"{float(full.abs().max()):.3f}, max error {err:.3e} (tol "
+          f"{SELF_CHECK_TOL:g}) in {time.perf_counter() - t0:.3f} s")
+    check(err <= SELF_CHECK_TOL, f"decode differs from forward by {err}")
+    del full, cache, logits
+
+    launches = 0
+    for gen in SERVE_GENS:
+        rng = np.random.default_rng(0)          # the reference server's recipe
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, rng.integers(4, 24))
+                        .astype(np.int32), max_new=gen) for i in range(8)]
+        server = BatchedServer(cfg, params, 4, cache_len=64 + gen, device=dev)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        stats = server.run(reqs)
+        torch.cuda.synchronize()
+        n_launch = cuda_lib.LAUNCHES["swa_decode"]
+        steps = stats["decode_steps"]
+        print(f"  BatchedServer batch 4, cache_len {64 + gen}, 8 requests x {gen} "
+              f"new tokens: {stats['tokens']} tokens in {stats['wall_s']:.3f} s, "
+              f"{stats['tok_per_s']:.1f} tok/s, {steps} decode steps, "
+              f"{stats['wall_s'] / steps * 1e3:.3f} ms per step; swa_decode "
+              f"launches {n_launch} ({steps} x {cfg.n_layers})")
+        print(f"  completions (first 8 tokens): {stats['completions']}")
+        check(stats["requests"] == 8 and all(len(r.out) == gen for r in reqs),
+              f"gen {gen}: incomplete completions")
+        check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+              f"gen {gen}: a token outside the vocabulary")
+        check(n_launch == steps * cfg.n_layers,
+              f"gen {gen}: {n_launch} swa_decode launches, not {steps} x "
+              f"{cfg.n_layers}")
+        launches += n_launch
+    # where a step's time goes near the end of the last wave (rings full)
+    last = max(len(r.prompt) for r in reqs[4:]) + SERVE_GENS[-1]
+    profile_decode(torch, dev, cfg, params, server.cache, last)
+    return dict(launches=launches)
+
+
+def profile_decode(torch, dev, cfg, params, cache, pos0: int, steps: int = 5) -> None:
+    """Wall and device time of a few decode steps on a filled cache: the
+    decode kernel's share of device time and the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+    tok = torch.zeros((cache["tail"][0]["kv"].k.shape[0], 1), dtype=torch.long,
+                      device=dev)
+
+    def run(p0):
+        for i in range(steps):
+            logits, _ = T.decode_step(cfg, params, cache, tok, p0 + i)
+        torch.cuda.synchronize()
+
+    run(pos0)
+    t0 = time.perf_counter()
+    run(pos0 + steps)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(pos0 + 2 * steps)
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    kern_ms = sum(e.self_device_time_total for e in events
+                  if "swa_decode_kernel" in e.key) / 1e3 / steps
+    launches = sum(e.count for e in events) / steps
+    print(f"  decode step at positions {pos0}..{pos0 + 3 * steps - 1}: "
+          f"{wall_ms:.3f} ms wall per step, device busy {busy_ms:.3f} ms under "
+          f"the profiler ({launches:.0f} device operations a step)"
+          + (f", idle share {1 - busy_ms / wall_ms:.3f}; swa_decode "
+             f"{kern_ms:.3f} ms per step, {kern_ms / busy_ms:.3f} of device "
+             f"time" if busy_ms else "; device time not measured by the profiler"))
+    for e in events[:12]:
+        print(f"    {e.self_device_time_total / 1e3 / steps:9.4f} ms/step "
+              f"{e.count / steps:6.0f} calls a step  {e.key[:90]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=None,
@@ -637,9 +896,11 @@ def main() -> int:
     errs = check_solvers(torch, dev)
     errs["masked_aggregate"] = check_aggregate(torch, dev)
     errs["quantized_masked_aggregate"] = check_quantized(torch, dev)
+    errs["swa_decode"] = check_decode(torch, dev)
 
     print("[3] times (CUDA events)", flush=True)
     rec = time_kernels(torch, dev)
+    rec["swa_decode"] = time_decode(torch, dev)
     time_round_parts(torch, dev)
     profile_sweep(torch, dev, "grid", grid_plans(dev, 5), "masked_aggregate")
     plans, _, cfgs, trains, tests, _ = quantized_plans(torch, dev, 5, 5)
@@ -658,6 +919,9 @@ def main() -> int:
     out["launches"]["quantized_masked_aggregate"] = \
         qout["launches"]["quantized_masked_aggregate"]
 
+    print("[6] serving gemma3-1b at full width", flush=True)
+    out["launches"]["swa_decode"] = serve_gemma3(torch, dev)["launches"]
+
     sources = {"fused_solve": ("src/repro_torch/csrc/selection_solve.cu",
                                "src/repro/kernels/selection_solve/kernel.py:143"),
                "selection_solve": ("src/repro_torch/csrc/selection_solve.cu",
@@ -666,12 +930,14 @@ def main() -> int:
                                     "src/repro/kernels/masked_aggregate/kernel.py:91"),
                "quantized_masked_aggregate": (
                    "src/repro_torch/csrc/masked_aggregate.cu",
-                   "src/repro/kernels/masked_aggregate/kernel.py:58")}
+                   "src/repro/kernels/masked_aggregate/kernel.py:58"),
+               "swa_decode": ("src/repro_torch/csrc/swa_decode.cu",
+                              "src/repro/kernels/swa_decode/kernel.py:75")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=out["launches"][name], max_abs_err=errs[name],
                     **rec[name])
                for name, (src, rep) in sources.items()]
-    print(f"[6] done in {time.perf_counter() - t_start:.1f} s; peak device "
+    print(f"[7] done in {time.perf_counter() - t_start:.1f} s; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(card_line)

@@ -3,7 +3,8 @@
 The port never sees a foreign array type.  A caller that holds the
 reference's model parameters or problem converts them to numpy first
 (``np.asarray`` leafwise) and hands them in here; the layouts are the
-reference's (HWIO conv weights, ``[N]``/``[N, K]`` problem leaves).
+reference's (HWIO conv weights, ``[N]``/``[N, K]`` problem leaves, the
+transformer's ``[d_in, d_out]`` weights with stacked ``reps`` leaves).
 """
 from __future__ import annotations
 
@@ -22,8 +23,10 @@ def _tensor(x, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree, device=None) -> dict:
-    """A nested dict of arrays (the CNN's ``{"conv1": {"w", "b"}, ...}``)
-    as tensors on ``device``, shapes and dtypes unchanged."""
+    """A tree of arrays (nested dicts and lists: the CNN's ``{"conv1":
+    {"w", "b"}, ...}``, the transformer's ``{"embed", "final_ln",
+    "stack": {"l0": ...}, "tail": [...]}``) as tensors on ``device``,
+    names, shapes and dtypes unchanged."""
     dev = resolve_device(device)
     return tree_map(lambda x: _tensor(x, dev), tree)
 
@@ -31,6 +34,12 @@ def params_from_numpy(tree, device=None) -> dict:
 def params_to_numpy(tree) -> dict:
     """The inverse of :func:`params_from_numpy`."""
     return tree_map(lambda x: x.detach().cpu().numpy(), tree)
+
+
+# the transformer's tree (``models.transformer.init_params``) needs nothing
+# beyond the walk over dicts and lists
+transformer_params_from_numpy = params_from_numpy
+transformer_params_to_numpy = params_to_numpy
 
 
 def problem_from_numpy(fields: dict, device=None) -> WirelessFLProblem:

@@ -1,1 +1,2 @@
-"""The paper's CNN, as ``repro.models.cnn``."""
+"""The paper's CNN (``cnn``, as ``repro.models.cnn``) and the scale-model
+substrate's dense decoder (``layers``, ``transformer``, ``zoo``)."""

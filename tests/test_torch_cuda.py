@@ -10,7 +10,10 @@ Tolerances: the kernels compute in float32 with the plain versions'
 operation order and no FMA contraction, so they are expected to match
 bit for bit; the checks allow 1e-5 (the reference's solver tolerance)
 on a* and P*, and exact equality for the eq.-4 sums, plain and
-quantised, whose order of addition is the same.  The drop-in solvers are
+quantised, whose order of addition is the same; the decode attention
+(swa_decode) at rtol = atol = 2e-5, the reference's float32 tolerance for
+its decode kernel (online softmax against the dense one).  The drop-in
+solvers are
 held against the plain ``solve_joint`` / ``solve_joint_optimal`` at
 1e-5.  The loop engine and the sweep under an 8-bit uplink draw the same
 noise, but their gradients may differ by float rounding on the card, so
@@ -22,6 +25,7 @@ import dataclasses
 import pytest
 import torch
 
+from repro_torch.configs import ARCHS
 from repro_torch.core.alternating import solve_joint
 from repro_torch.core.optimal import solve_joint_optimal
 from repro_torch.core.problem import sample_problem
@@ -35,6 +39,10 @@ from repro_torch.kernels.masked_aggregate import ops as agg_ops
 from repro_torch.kernels.masked_aggregate import ref as agg_ref
 from repro_torch.kernels.selection_solve import ops as solve_ops
 from repro_torch.kernels.selection_solve import ref as solve_ref
+from repro_torch.kernels.swa_decode import ops as swa_ops
+from repro_torch.kernels.swa_decode import ref as swa_ref
+from repro_torch.launch.serve import BatchedServer, Request
+from repro_torch.models import transformer as T
 from repro_torch.tree import tree_leaves
 
 torch.set_num_threads(1)
@@ -43,6 +51,8 @@ SOLVE_TOL = 1e-5
 FLIP_SHARE = 1e-3
 NOT_WHOLE = 7.9999995
 CNN_LEAVES = (72, 8, 1152, 16, 195216, 249, 2490, 10)
+DECODE_TOL = 2e-5
+MODEL_TOL = 1e-4
 
 pytestmark = pytest.mark.cuda
 
@@ -200,3 +210,94 @@ def test_sweep_with_kernel_aggregate_matches_fused_path(dev):
         torch.testing.assert_close(a, b, rtol=SOLVE_TOL, atol=SOLVE_TOL)
     for h0, h1 in zip(runs[0].histories, runs[1].histories):
         assert (h0.participants == h1.participants).all()
+
+
+def _ring_positions(w, qpos, dev):
+    """Slot s holds the latest position p <= qpos with p % W == s."""
+    latest = qpos - (qpos - torch.arange(w, device=dev)) % w
+    return torch.where(latest >= 0, latest, -1).to(torch.int32)
+
+
+def _decode_case(dev, b, w, hkv, g, dh, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, hkv, g, dh, device=dev, generator=gen) * dh ** -0.5
+    k = torch.randn(b, w, hkv, dh, device=dev, generator=gen)
+    v = torch.randn(b, w, hkv, dh, device=dev, generator=gen)
+    return q, k, v
+
+
+@pytest.mark.parametrize("w,hkv,g,dh,window", [
+    (512, 4, 4, 64, None), (1024, 2, 8, 128, 300), (512, 1, 4, 128, 128),
+    (256, 8, 1, 64, None)])
+def test_swa_decode_matches_plain_version(dev, w, hkv, g, dh, window):
+    """The reference kernel tests' shapes: the last 3 slots empty."""
+    q, k, v = _decode_case(dev, 2, w, hkv, g, dh, w + hkv)
+    pos = torch.where(torch.arange(w, device=dev) < w - 3,
+                      torch.arange(w, device=dev), -1).to(torch.int32)
+    before = cuda_lib.LAUNCHES["swa_decode"]
+    out = swa_ops.swa_decode(q, k, v, pos, w + 5, window=window)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["swa_decode"] == before + 1
+    torch.testing.assert_close(
+        out, swa_ref.swa_decode_ref(q, k, v, pos, w + 5, window=window),
+        rtol=DECODE_TOL, atol=DECODE_TOL)
+
+
+@pytest.mark.parametrize("w", [88, 96, 97, 512, 664, 4096])
+@pytest.mark.parametrize("window", [None, 512])
+def test_swa_decode_gemma3_shapes_match_plain_version(dev, w, window):
+    """gemma3's MQA heads (Hkv 1, G 4, dh 256), a ring filling, full and
+    wrapped (qpos past W), any W; W = 88 is the serving run's 64 + 24."""
+    q, k, v = _decode_case(dev, 4, w, 1, 4, 256, w)
+    for qpos in (w // 2, w - 1, w + 37):
+        pos = _ring_positions(w, qpos, dev)
+        out = swa_ops.swa_decode(q, k, v, pos, qpos, window=window)
+        torch.testing.assert_close(
+            out, swa_ref.swa_decode_ref(q, k, v, pos, qpos, window=window),
+            rtol=DECODE_TOL, atol=DECODE_TOL)
+
+
+def test_swa_decode_wrapper_checks_operands(dev):
+    q, k, v = _decode_case(dev, 1, 8, 1, 4, 64, 0)
+    pos = torch.arange(8, device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="float32"):
+        swa_ops.swa_decode(q, k.double(), v, pos, 7, window=None)
+    with pytest.raises(ValueError, match="int32"):
+        swa_ops.swa_decode(q, k, v, pos.long(), 7, window=None)
+    with pytest.raises(ValueError, match="expected q"):
+        swa_ops.swa_decode(q, k[:, :4], v, pos, 7, window=None)
+    with pytest.raises(ValueError, match="G <= 8"):
+        q16, k16, v16 = _decode_case(dev, 1, 8, 1, 16, 64, 0)
+        swa_ops.swa_decode(q16, k16, v16, pos, 7, window=None)
+
+
+@pytest.mark.parametrize("d_model", [64, 256])
+def test_decode_step_on_the_card_matches_forward(dev, d_model):
+    """A reduced gemma3 (local rings of 64, global layers) teacher-forced
+    for 130 steps through the kernel, against forward's plain attention."""
+    cfg = ARCHS["gemma3-1b"].reduced(n_layers=14, d_model=d_model)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    tokens = torch.randint(0, cfg.vocab, (2, 130), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    full, _ = T.forward(cfg, params, {"tokens": tokens})
+    cache = T.init_cache(cfg, 2, 130, device=dev)
+    before = cuda_lib.LAUNCHES["swa_decode"]
+    for i in range(130):
+        logits, cache = T.decode_step(cfg, params, cache, tokens[:, i:i + 1], i)
+        torch.testing.assert_close(logits[:, 0], full[:, i], rtol=MODEL_TOL,
+                                   atol=MODEL_TOL)
+    assert cuda_lib.LAUNCHES["swa_decode"] == before + 130 * cfg.n_layers
+
+
+def test_batched_server_on_the_card_launches_the_kernel(dev):
+    cfg = ARCHS["gemma3-1b"].reduced()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    reqs = [Request(rid=i, prompt=torch.arange(4 + i).numpy() % cfg.vocab,
+                    max_new=5) for i in range(3)]
+    before = cuda_lib.LAUNCHES["swa_decode"]
+    stats = BatchedServer(cfg, params, 2, cache_len=69, device=dev).run(reqs)
+    assert all(len(r.out) == 5 for r in reqs)
+    assert (cuda_lib.LAUNCHES["swa_decode"] - before
+            == stats["decode_steps"] * cfg.n_layers)
