@@ -30,7 +30,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against ``forward`` over 640 tokens, then ``BatchedServer`` on 8
    requests at 24 and at 600 new tokens, every attention layer of every
    decode step through the decode kernel, and profile a few steps;
-7. print the kernel record, the card, and the last line
+7. drive the Mamba2 slice: mamba2-780m at full width (780,382,464
+   parameters from a seeded generator), prefilled through
+   ``make_prefill_step`` at B = 1, S = 32,768 and at B = 4, S = 4,096,
+   every layer's scan through the SSD kernel (48 launches a prefill), one
+   prefill profiled; then teacher-forced decode (the recurrence) against
+   ``forward`` over 512 tokens, and ``BatchedServer`` on 8 requests;
+8. print the kernel record, the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero without a CUDA device and
@@ -67,10 +73,20 @@ SOLVE_TOL = 1e-5        # a* and P*: the reference's solver tolerance
 AGG_TOL = 1e-5          # eq.-4 sum of O(1) values, same order of addition
 QUANT_TOL = 0.0         # the quantised sum: same arithmetic, same order
 DECODE_TOL = 2e-5       # decode attention: the reference's float32 tolerance
+# the SSD scan: the reference's tolerances for its kernel against the
+# sequential recurrence and for its wrapper against the chunked form
+SSD_SEQ_TOL = 1e-4
+SSD_TOL = 2e-4
 SELF_CHECK_TOL = 1e-3   # full-width decode logits against forward's
 # gemma3-1b's attention: MQA, one KV head for G = 4 query heads of 256
 GEMMA3_HEADS = (1, 4, 256)
 SERVE_GENS = (24, 600)  # the reference server's default, and past the window
+# mamba2-780m's scan: 48 heads of P = 64, d_state 128, chunk 256; the
+# prefills (B, S): prefill_32k's length with its batch cut from 32 (whose
+# float32 logits alone would be 211 GB), and a batch of 4 at 4,096
+MAMBA2_SSD = (48, 64, 128, 256)
+MAMBA2_PREFILLS = ((1, 32768), (4, 4096))
+MAMBA2_SELF_CHECK = (2, 512)        # teacher-forced decode: 2 chunks
 # decode timings at gemma3's heads beyond the serving step: (B, W, window,
 # distinct caches, repetitions); the serving runs' caches (W 88 at gen 24,
 # 512 and 664 at gen 600) and a long cache at a larger batch
@@ -340,45 +356,58 @@ def grid_plans(dev, rounds: int):
     return plans, cfgs, trains, tests
 
 
-def profile_sweep(torch, dev, label: str, built, kernel: str,
-                  rounds: int = 5) -> None:
-    """Where a sweep round's time goes, at the slice's widths: wall time
-    against device-busy time, the share of ``kernel``, and device time by
-    kernel (torch.profiler)."""
+def profile_run(torch, label: str, fn, per: int, unit: str,
+                kernel: str | None) -> None:
+    """Where the time of a warm ``fn`` goes: wall time against device-busy
+    time (torch.profiler), the idle share, ``kernel``'s share of device
+    time where ``kernel`` names one, and device time by kernel.  ``fn(k)``
+    is called twice, k = 0 timed and k = 1 profiled; one call makes
+    ``per`` ``unit``s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.fl.scan_engine import init_sweep_params, run_fl_sweep, stack_plans
-    plans, cfgs, trains, tests = built
-    stacked, params0 = stack_plans(plans), init_sweep_params(cfgs, device=dev)
-
-    def sweep():
-        run_fl_sweep(stacked, trains, tests, cfgs[0], params0, device=dev)
-        torch.cuda.synchronize()
-
-    sweep()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sweep()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
+    fn(0)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / per
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sweep()
+        fn(1)
+        torch.cuda.synchronize()
     # device-side events only (kernels, copies): the host ops that
     # launched them carry the same device time again
     events = sorted((e for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / rounds
-    kern_ms = sum(e.self_device_time_total for e in events
-                  if re.search(rf"(?<!\w){kernel}_kernel\b", e.key)) / 1e3 / rounds
-    print(f"  {label}: sweep of {len(plans)} trajectories, {rounds} rounds: "
-          f"{wall_ms:.3f} ms wall per round (incl. one evaluation), device "
-          f"busy {busy_ms:.3f} ms per round under the profiler"
-          + (f", idle share {1 - busy_ms / wall_ms:.3f}; {kernel} "
-             f"{kern_ms:.3f} ms per round, {kern_ms / busy_ms:.3f} of device "
-             f"time, {kern_ms / wall_ms:.3f} of wall time" if busy_ms else
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / per
+    kern_ms = sum(e.self_device_time_total for e in events if kernel and
+                  re.search(rf"(?<!\w){kernel}_kernel\b", e.key)) / 1e3 / per
+    share = (f"; {kernel} {kern_ms:.3f} ms per {unit}, {kern_ms / busy_ms:.3f} "
+             f"of device time, {kern_ms / wall_ms:.3f} of wall time"
+             if kernel and busy_ms else "")
+    print(f"  {label}: {wall_ms:.3f} ms wall per {unit}, device busy "
+          f"{busy_ms:.3f} ms under the profiler "
+          f"({sum(e.count for e in events) / per:.0f} device operations a {unit})"
+          + (f", idle share {1 - busy_ms / wall_ms:.3f}{share}" if busy_ms else
              "; device time not measured by the profiler"))
     for e in events[:12]:
-        print(f"    {e.self_device_time_total / 1e3 / rounds:9.3f} ms/round "
-              f"{e.count:6d} calls in {rounds} rounds  {e.key[:90]}")
+        print(f"    {e.self_device_time_total / 1e3 / per:10.4f} ms/{unit} "
+              f"{e.count / per:8.1f} calls a {unit}  {e.key[:90]}")
+
+
+def profile_sweep(torch, dev, label: str, built, kernel: str,
+                  rounds: int = 5) -> None:
+    """Where a sweep round's time goes, at the slice's widths."""
+    from repro_torch.fl.scan_engine import init_sweep_params, run_fl_sweep, stack_plans
+    plans, cfgs, trains, tests = built
+    stacked, params0 = stack_plans(plans), init_sweep_params(cfgs, device=dev)
+
+    def sweep(_k=None):
+        run_fl_sweep(stacked, trains, tests, cfgs[0], params0, device=dev)
+
+    sweep()
+    profile_run(torch, f"{label}: sweep of {len(plans)} trajectories, {rounds} "
+                f"rounds (a round incl. one evaluation)", sweep, rounds, "round",
+                kernel)
 
 
 def run_slice(torch, dev, rounds, eval_every) -> dict:
@@ -813,46 +842,264 @@ def serve_gemma3(torch, dev) -> dict:
         launches += n_launch
     # where a step's time goes near the end of the last wave (rings full)
     last = max(len(r.prompt) for r in reqs[4:]) + SERVE_GENS[-1]
-    profile_decode(torch, dev, cfg, params, server.cache, last)
+    profile_decode(torch, dev, cfg, params, server.cache, last, server.b,
+                   "swa_decode")
     return dict(launches=launches)
 
 
-def profile_decode(torch, dev, cfg, params, cache, pos0: int, steps: int = 5) -> None:
-    """Wall and device time of a few decode steps on a filled cache: the
-    decode kernel's share of device time and the idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profile_decode(torch, dev, cfg, params, cache, pos0: int, batch: int,
+                   kernel: str | None, steps: int = 5) -> None:
+    """Where a decode step's time goes on a filled cache, over a few steps
+    from position ``pos0``."""
     from repro_torch.models import transformer as T
-    tok = torch.zeros((cache["tail"][0]["kv"].k.shape[0], 1), dtype=torch.long,
-                      device=dev)
+    tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
 
-    def run(p0):
+    def run(k):
         for i in range(steps):
-            logits, _ = T.decode_step(cfg, params, cache, tok, p0 + i)
-        torch.cuda.synchronize()
+            T.decode_step(cfg, params, cache, tok, pos0 + (k + 1) * steps + i)
 
-    run(pos0)
+    run(-1)
+    profile_run(torch, f"decode step at positions {pos0}..{pos0 + 3 * steps - 1}",
+                run, steps, "step", kernel)
+
+
+# -------------------------------------------------------------- the SSD scan
+
+def ssd_operands(torch, dev, b, s, h, p, n, seed, init=False):
+    """Mamba-shaped scan operands at the reference kernel tests' ranges:
+    x [B,S,H,P], dt [B,S,H], a [H], B/C [B,S,N], D [H], init [B,H,P,N]."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, device=dev, generator=gen)
+    x = torch.randn(b, s, h, p, device=dev, generator=gen)
+    dt = u((b, s, h), 0.001, 0.1)
+    a = -u((h,), 0.5, 4.0)
+    bm = torch.randn(b, s, n, device=dev, generator=gen) * 0.3
+    cm = torch.randn(b, s, n, device=dev, generator=gen) * 0.3
+    d = torch.randn(h, device=dev, generator=gen)
+    s0 = torch.randn(b, h, p, n, device=dev, generator=gen) if init else None
+    return (x, dt, a, bm, cm, d), s0
+
+
+def layer0_operands(torch, dev, cfg, params, b, s, seed):
+    """The scan operands of the full-width model's first Mamba2 layer on
+    random tokens: dt and A in the model's own ranges."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
+    from repro_torch.tree import tree_map
+    tokens = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+    x = params["embed"][tokens] * float(math.sqrt(cfg.d_model))
+    lp = tree_map(lambda t: t[0], params["stack"])["l0"]
+    return M.ssd_inputs(lp["mamba"], L.rmsnorm(lp["ln"], x), cfg.ssm)[1]
+
+
+def check_ssd(torch, dev, cfg, params) -> float:
+    """The SSD kernel (y and final state) against its plain chunked
+    version at mamba2-780m's widths (random and layer-0 operands), a
+    single chunk, a given initial state, the reduced and ragged shapes;
+    and y against the sequential recurrence at S <= 1,024."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+    h, p, n, cs = MAMBA2_SSD
+    cases = []       # (label, operands, init, chunk, against the recurrence)
+    for b, s in MAMBA2_PREFILLS:
+        ops_, _ = ssd_operands(torch, dev, b, s, h, p, n, s + b)
+        cases.append((f"mamba2 B={b} S={s}", ops_, None, cs, False))
+        cases.append((f"mamba2 layer 0 B={b} S={s}",
+                      layer0_operands(torch, dev, cfg, params, b, s, b), None, cs,
+                      False))
+    for label, (b, s, hh, pp, nn, ch), init, seq in (
+            ("mamba2, S=1024", (1, 1024, h, p, n, cs), False, True),
+            ("mamba2, single chunk", (2, cs, h, p, n, cs), False, True),
+            ("mamba2, init_state", (2, 1024, h, p, n, cs), True, False),
+            ("reduced", (2, 128, 16, 32, 16, 32), False, True),
+            ("reduced, init_state", (2, 128, 16, 32, 16, 32), True, False),
+            ("ragged", (1, 192, 3, 48, 100, 96), False, True),
+            ("ragged, init_state", (3, 40, 5, 7, 5, 8), True, False),
+            ("ragged", (3, 40, 5, 7, 5, 8), False, True)):
+        ops_, s0 = ssd_operands(torch, dev, b, s, hh, pp, nn, s + pp + nn, init)
+        cases.append((label, ops_, s0, ch, seq))
+    worst = 0.0
+    for label, ops_, s0, ch, seq in cases:
+        x = ops_[0]
+        b, s, hh, pp = x.shape
+        y, state = ops.ssd_apply(*ops_, chunk=ch, init_state=s0, return_state=True)
+        plain_y, plain_state = ref.ssd_chunked_ref(*ops_, ch, s0)
+        torch.cuda.synchronize()
+        ok = all(bool(torch.isfinite(t).all()) and bool(torch.allclose(
+            t, u, rtol=SSD_TOL, atol=SSD_TOL)) for t, u in
+            ((y, plain_y), (state, plain_state)))
+        err = max(float((y - plain_y).abs().max()),
+                  float((state - plain_state).abs().max()))
+        line = (f"  ssd_scan {label}: B={b} S={s} H={hh} P={pp} "
+                f"N={ops_[3].shape[-1]} chunk={ch}: max|y, state - chunked| = "
+                f"{err:.3e} (rtol = atol = {SSD_TOL:g}; max|y| "
+                f"{float(plain_y.abs().max()):.3g})")
+        worst = max(worst, err)
+        if seq:
+            xf, dt, a, bm, cm, d = ops_
+            rec = ref.ssd_scan_ref(
+                xf.permute(0, 2, 1, 3).reshape(b * hh, s, pp),
+                dt.permute(0, 2, 1).reshape(b * hh, s), a.repeat(b),
+                bm.repeat_interleave(hh, dim=0), cm.repeat_interleave(hh, dim=0),
+                d.repeat(b)).reshape(b, hh, s, pp).permute(0, 2, 1, 3)
+            seq_err = float((y - rec).abs().max())
+            ok = ok and bool(torch.allclose(y, rec, rtol=SSD_SEQ_TOL,
+                                            atol=SSD_SEQ_TOL))
+            line += (f"; max|y - recurrence| = {seq_err:.3e} (rtol = atol = "
+                     f"{SSD_SEQ_TOL:g})")
+            worst = max(worst, seq_err)
+        print(line)
+        check(ok, f"ssd_scan {label}: beyond tolerance ({err})")
+        del y, state, plain_y, plain_state
+    return worst
+
+
+def ssd_bound(b, s, h, p, n, cs) -> tuple[float, str]:
+    """The least work of one scan: C.B^T once per (batch row, chunk) and
+    the products over the causal triangle only (s <= l); x, B, C, dt, a,
+    D read once, y and the final state written once.  Each multiply-add counts two operations, as do the products'
+    elementwise steps (exp as one)."""
+    tri = cs * (cs + 1) // 2
+    per_chunk = 2 * tri * n + h * (
+        2 * tri * p + 4 * tri           # intra product; L: diff, exp, two products
+        + 2 * cs * p * n + cs * p       # inter product, its decay
+        + 2 * cs * p * n + p * n        # state update, its decay
+        + 3 * cs * p + 5 * cs)          # D x and the sums; cumsum and weights
+    ops = b * (s // cs) * per_chunk
+    nbytes = 4 * (2 * b * s * h * p + 2 * b * s * n + b * s * h + 2 * h
+                  + b * h * p * n)
+    return bound_ms(nbytes, ops)
+
+
+def time_ssd(torch, dev) -> dict:
+    """CUDA-event times of the SSD kernel and its plain chunked version
+    per launch at both prefill shapes; the record holds B = 1, S = 32,768
+    (prefill_32k's row).  No single PyTorch call computes the scan."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+    h, p, n, cs = MAMBA2_SSD
+    rec = None
+    for b, s in MAMBA2_PREFILLS:
+        ops_, _ = ssd_operands(torch, dev, b, s, h, p, n, 7 * s + b)
+        ms = cuda_ms(torch, lambda: ops.ssd_apply(*ops_, chunk=cs), 10)
+        plain_ms = cuda_ms(torch, lambda: ref.ssd_chunked_ref(*ops_, cs), 3)
+        b_ms, b_by = ssd_bound(b, s, h, p, n, cs)
+        print(f"  ssd_scan B={b} S={s} (H={h} P={p} N={n} chunk={cs}): kernel "
+              f"{ms:.6f} ms, plain {plain_ms:.6f} ms, library none, bound "
+              f"{b_ms:.6f} ms ({b_by}); kernel at {b_ms / ms:.3f} of its bound")
+        if rec is None:
+            rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None)
+        del ops_
+    return rec
+
+
+def init_mamba2(torch, dev):
+    """mamba2-780m at full width from a seeded generator: (cfg, params)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    cfg = get_arch("mamba2-780m")
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    return cfg, params
+
+
+def profile_prefill(torch, prefill, params, tokens) -> None:
+    """Where one (warm) prefill's time goes."""
+    b, s = tokens.shape
+    profile_run(torch, f"profiled prefill B={b} S={s}",
+                lambda _k: prefill(params, {"tokens": tokens}), 1, "prefill",
+                "ssd_scan")
+
+
+def run_mamba2(torch, dev, cfg, params) -> dict:
+    """The Mamba2 slice's main path at full width, with the launch count
+    zeroed just before each prefill and read just after it; then decode
+    against forward and the server."""
+    import numpy as np
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models import zoo
+    from repro_torch.tree import tree_leaves
+    n = sum(x.numel() for x in tree_leaves(params))
+    print(f"  {cfg.name}: {n:,} parameters on the card ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.ssm.n_heads(cfg.d_model)} heads of "
+          f"{cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, chunk {cfg.ssm.chunk}, "
+          f"vocab {cfg.vocab:,} padded to {T.padded_vocab(cfg):,})")
+    check(n == zoo.param_count(cfg), f"{n} parameters, not {zoo.param_count(cfg)}")
+    prefill = make_prefill_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    prefill(params, {"tokens": torch.zeros((1, cfg.ssm.chunk), dtype=torch.long,
+                                           device=dev)})     # warm-up
+    launches = 0
+    for b, s in MAMBA2_PREFILLS:
+        tokens = torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch = cuda_lib.LAUNCHES["ssd_scan"]
+        print(f"  prefill B={b} S={s}: {wall:.3f} s wall, {b * s / wall:,.0f} "
+              f"tokens/s, ssd_scan launches {n_launch} ({cfg.n_layers} layers); "
+              f"logits {tuple(logits.shape)}, max|logits| "
+              f"{float(logits.abs().max()):.3f}")
+        check(tuple(logits.shape) == (b, s, T.padded_vocab(cfg)),
+              f"prefill logits of shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+        check(n_launch == cfg.n_layers,
+              f"prefill B={b} S={s}: {n_launch} ssd_scan launches, not "
+              f"{cfg.n_layers}")
+        launches += n_launch
+        del logits
+    profile_prefill(torch, prefill, params,
+                    torch.randint(0, cfg.vocab, MAMBA2_PREFILLS[0], device=dev,
+                                  generator=gen))
+
+    # teacher-forced decode (the recurrence, no kernel) against forward (the
+    # kernel) over two chunks
+    b, s = MAMBA2_SELF_CHECK
+    tokens = torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen)
     t0 = time.perf_counter()
-    run(pos0 + steps)
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(pos0 + 2 * steps)
-    events = sorted((e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
-    kern_ms = sum(e.self_device_time_total for e in events
-                  if "swa_decode_kernel" in e.key) / 1e3 / steps
-    launches = sum(e.count for e in events) / steps
-    print(f"  decode step at positions {pos0}..{pos0 + 3 * steps - 1}: "
-          f"{wall_ms:.3f} ms wall per step, device busy {busy_ms:.3f} ms under "
-          f"the profiler ({launches:.0f} device operations a step)"
-          + (f", idle share {1 - busy_ms / wall_ms:.3f}; swa_decode "
-             f"{kern_ms:.3f} ms per step, {kern_ms / busy_ms:.3f} of device "
-             f"time" if busy_ms else "; device time not measured by the profiler"))
-    for e in events[:12]:
-        print(f"    {e.self_device_time_total / 1e3 / steps:9.4f} ms/step "
-              f"{e.count / steps:6.0f} calls a step  {e.key[:90]}")
+    full = prefill(params, {"tokens": tokens})
+    cache = T.init_cache(cfg, b, s, device=dev)
+    before = cuda_lib.LAUNCHES["ssd_scan"]
+    err = torch.zeros((), device=dev)
+    for i in range(s):
+        logits, cache = T.decode_step(cfg, params, cache, tokens[:, i:i + 1], i)
+        err = torch.maximum(err, (logits[:, 0, :cfg.vocab]
+                                  - full[:, i, :cfg.vocab]).abs().max())
+    err = float(err)
+    print(f"  teacher-forced decode vs forward, B={b} S={s}: max|logits| "
+          f"{float(full[..., :cfg.vocab].abs().max()):.3f}, max error {err:.3e} "
+          f"(tol {SELF_CHECK_TOL:g}) in {time.perf_counter() - t0:.3f} s")
+    check(cuda_lib.LAUNCHES["ssd_scan"] == before, "decode launched the scan")
+    check(err <= SELF_CHECK_TOL, f"decode differs from forward by {err}")
+    del full, cache, logits
+
+    gen_len = SERVE_GENS[0]
+    rng = np.random.default_rng(0)              # the reference server's recipe
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, rng.integers(4, 24))
+                    .astype(np.int32), max_new=gen_len) for i in range(8)]
+    server = BatchedServer(cfg, params, 4, cache_len=64 + gen_len, device=dev)
+    stats = server.run(reqs)
+    steps = stats["decode_steps"]
+    print(f"  BatchedServer batch 4, 8 requests x {gen_len} new tokens: "
+          f"{stats['tokens']} tokens in {stats['wall_s']:.3f} s, "
+          f"{stats['tok_per_s']:.1f} tok/s, {steps} decode steps, "
+          f"{stats['wall_s'] / steps * 1e3:.3f} ms per step")
+    print(f"  completions (first 8 tokens): {stats['completions']}")
+    check(stats["requests"] == 8 and all(len(r.out) == gen_len for r in reqs),
+          "mamba2: incomplete completions")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+          "mamba2: a token outside the vocabulary")
+    last = max(len(r.prompt) for r in reqs[4:]) + gen_len
+    profile_decode(torch, dev, cfg, params, server.cache, last, server.b, None)
+    return dict(launches=launches)
 
 
 def main() -> int:
@@ -876,6 +1123,9 @@ def main() -> int:
     from repro_torch.kernels import cuda_lib
 
     t_start = time.perf_counter()
+
+    def at() -> str:
+        return f" (at {time.perf_counter() - t_start:.1f} s)"
     dev = resolve_device(None)
     card_line = card()
     print(f"[card] {card_line}; torch {torch.__version__}, CUDA "
@@ -892,15 +1142,18 @@ def main() -> int:
         if "registers" in line or "spill" in line or line[:2] in ("==", "(n"):
             print("  " + line.strip())
 
-    print("[2] kernels against their plain versions", flush=True)
+    print("[2] kernels against their plain versions" + at(), flush=True)
     errs = check_solvers(torch, dev)
     errs["masked_aggregate"] = check_aggregate(torch, dev)
     errs["quantized_masked_aggregate"] = check_quantized(torch, dev)
     errs["swa_decode"] = check_decode(torch, dev)
+    mamba2 = init_mamba2(torch, dev)
+    errs["ssd_scan"] = check_ssd(torch, dev, *mamba2)
 
-    print("[3] times (CUDA events)", flush=True)
+    print("[3] times (CUDA events)" + at(), flush=True)
     rec = time_kernels(torch, dev)
     rec["swa_decode"] = time_decode(torch, dev)
+    rec["ssd_scan"] = time_ssd(torch, dev)
     time_round_parts(torch, dev)
     profile_sweep(torch, dev, "grid", grid_plans(dev, 5), "masked_aggregate")
     plans, _, cfgs, trains, tests, _ = quantized_plans(torch, dev, 5, 5)
@@ -908,19 +1161,23 @@ def main() -> int:
                   "quantized_masked_aggregate")
     del plans
 
-    print("[4] the slice: run_grid over both scenarios", flush=True)
+    print("[4] the slice: run_grid over both scenarios" + at(), flush=True)
     out = run_slice(torch, dev, args.rounds, args.eval_every)
     check_slice(torch, dev, out)
 
     print("[5] the quantised uplink: one sweep over both scenarios x three "
-          "schemes", flush=True)
+          "schemes" + at(), flush=True)
     qout = run_quantized(torch, dev, args.rounds, args.eval_every)
     check_quantized_loop(torch, dev)
     out["launches"]["quantized_masked_aggregate"] = \
         qout["launches"]["quantized_masked_aggregate"]
 
-    print("[6] serving gemma3-1b at full width", flush=True)
+    print("[6] serving gemma3-1b at full width" + at(), flush=True)
     out["launches"]["swa_decode"] = serve_gemma3(torch, dev)["launches"]
+
+    print("[7] mamba2-780m at full width: prefill and serving" + at(), flush=True)
+    out["launches"]["ssd_scan"] = run_mamba2(torch, dev, *mamba2)["launches"]
+    del mamba2
 
     sources = {"fused_solve": ("src/repro_torch/csrc/selection_solve.cu",
                                "src/repro/kernels/selection_solve/kernel.py:143"),
@@ -932,12 +1189,14 @@ def main() -> int:
                    "src/repro_torch/csrc/masked_aggregate.cu",
                    "src/repro/kernels/masked_aggregate/kernel.py:58"),
                "swa_decode": ("src/repro_torch/csrc/swa_decode.cu",
-                              "src/repro/kernels/swa_decode/kernel.py:75")}
+                              "src/repro/kernels/swa_decode/kernel.py:75"),
+               "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                            "src/repro/kernels/ssd_scan/kernel.py:82")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=out["launches"][name], max_abs_err=errs[name],
                     **rec[name])
                for name, (src, rep) in sources.items()]
-    print(f"[7] done in {time.perf_counter() - t_start:.1f} s; peak device "
+    print(f"[8] done in {time.perf_counter() - t_start:.1f} s; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(card_line)

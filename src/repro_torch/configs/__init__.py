@@ -3,13 +3,13 @@ runs.  The reference's other archs raise in ``get_arch`` until the slice
 that ports their blocks adds their config files."""
 from repro_torch.configs.base import INPUT_SHAPES, ArchConfig, InputShape
 from repro_torch.configs.gemma3_1b import CONFIG as _gemma3
+from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
 
-ARCHS: dict[str, ArchConfig] = {cfg.name: cfg for cfg in [_gemma3]}
+ARCHS: dict[str, ArchConfig] = {cfg.name: cfg for cfg in [_gemma3, _mamba2]}
 
 NOT_PORTED = ("deepseek-v2-lite-16b", "demo-100m", "gemma2-27b",
               "h2o-danube-3-4b", "internvl2-2b", "llama4-scout-17b-a16e",
-              "mamba2-780m", "phi3-medium-14b", "whisper-large-v3",
-              "zamba2-7b")
+              "phi3-medium-14b", "whisper-large-v3", "zamba2-7b")
 
 
 def get_arch(name: str) -> ArchConfig:

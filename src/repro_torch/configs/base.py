@@ -13,8 +13,8 @@ stacked period parameters, plus an unrolled prefix and tail.  Block kinds:
                   all its occurrences
 
 Each non-mamba layer carries an MLP ("dense" SwiGLU/GeGLU or "moe").  The
-port runs the "attn"/"gattn" blocks with dense MLPs so far
-(``models/transformer.py`` says which slice brings the others).
+port runs the "attn"/"gattn" blocks with dense MLPs and the "mamba" blocks
+so far (``models/transformer.py`` says which slice brings the others).
 """
 from __future__ import annotations
 

@@ -36,12 +36,6 @@ def params_to_numpy(tree) -> dict:
     return tree_map(lambda x: x.detach().cpu().numpy(), tree)
 
 
-# the transformer's tree (``models.transformer.init_params``) needs nothing
-# beyond the walk over dicts and lists
-transformer_params_from_numpy = params_from_numpy
-transformer_params_to_numpy = params_to_numpy
-
-
 def problem_from_numpy(fields: dict, device=None) -> WirelessFLProblem:
     """A problem from its fields: arrays for the tensor leaves (``None``
     for absent optional leaves), python numbers for the constants."""

@@ -33,7 +33,7 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
               "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"fused_solve": 0, "selection_solve": 0, "masked_aggregate": 0,
-            "quantized_masked_aggregate": 0, "swa_decode": 0}
+            "quantized_masked_aggregate": 0, "swa_decode": 0, "ssd_scan": 0}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -42,6 +42,7 @@ _SIGNATURES = {
     "repro_masked_aggregate": [_P] * 3 + [_I, _I, _LL, _P],
     "repro_quantized_masked_aggregate": [_P] * 6 + [_I, _I, _LL, _P],
     "repro_swa_decode": [_P] * 5 + [_I] * 5 + [_LL, _LL, _P],
+    "repro_ssd_scan": [_P] * 9 + [_I] * 6 + [_P],
 }
 
 _library: Optional[ctypes.CDLL] = None

@@ -11,10 +11,10 @@ have no counterpart in one-device inference.
 Embedding tables are padded to a multiple of 256 rows; logits beyond the
 true vocab are masked to the dtype's minimum at decode.
 
-Block kinds (configs/base.py): this slice runs ``attn`` and ``gattn`` with
-dense MLPs.  ``mla``, ``mamba``, ``shared_attn``, MoE MLPs, the whisper
-encoder and the vision prefix raise ``NotImplementedError`` naming the
-slice that brings them.
+Block kinds (configs/base.py): the port runs ``attn`` and ``gattn`` with
+dense MLPs, and ``mamba`` (Mamba2, no MLP).  ``mla``, ``shared_attn``, MoE
+MLPs, the whisper encoder and the vision prefix raise
+``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.tree import tree_map
 
 Params = dict
@@ -33,7 +34,6 @@ LayerKind = tuple  # (mixer, mlp) e.g. ("attn", "dense")
 VOCAB_PAD = 256
 
 _NOT_PORTED = {
-    "mamba": "the mamba2-780m slice",
     "shared_attn": "the zamba2-7b slice",
     "mla": "the deepseek-v2-lite-16b slice",
     "moe": "the MoE slice (deepseek-v2-lite-16b, llama4-scout)",
@@ -49,11 +49,12 @@ def _not_ported(what: str):
 
 
 def _check_kind(kind: LayerKind) -> None:
-    """Raise unless the layer is an attention block with a dense MLP."""
+    """Raise unless the layer is an attention block with a dense MLP or a
+    Mamba2 block."""
     mixer, mlp = kind
-    if mixer not in ("attn", "gattn"):
+    if mixer not in ("attn", "gattn", "mamba"):
         raise _not_ported(mixer)
-    if mlp != "dense":
+    if mlp not in ("dense", "none"):
         raise _not_ported(mlp)
 
 
@@ -124,6 +125,9 @@ def _attn_spec(cfg: ArchConfig, mixer: str) -> L.AttnLayerSpec:
 def init_layer(gen, cfg: ArchConfig, kind: LayerKind, device=None) -> Params:
     _check_kind(kind)
     mixer, _ = kind
+    if mixer == "mamba":
+        return {"ln": L.rmsnorm_init(cfg.d_model, device),
+                "mamba": M.mamba_init(gen, cfg.d_model, cfg.ssm, device)}
     return {
         "ln1": L.rmsnorm_init(cfg.d_model, device),
         "attn": L.attn_init(gen, cfg.d_model, _attn_spec(cfg, mixer), device),
@@ -142,6 +146,9 @@ class FwdCtx(NamedTuple):
 def apply_layer(params: Params, x: torch.Tensor, cfg: ArchConfig,
                 kind: LayerKind, ctx: FwdCtx) -> torch.Tensor:
     _check_kind(kind)
+    if kind[0] == "mamba":
+        return x + M.mamba_apply(params["mamba"], L.rmsnorm(params["ln"], x),
+                                 cfg.ssm)
     spec = _attn_spec(cfg, kind[0])
     x = x + L.attn_apply(params["attn"], L.rmsnorm(params["ln1"], x),
                          ctx.positions, spec, ctx.q_chunk)
@@ -217,6 +224,9 @@ def forward(cfg: ArchConfig, params: Params, batch: dict,
 def init_layer_cache(cfg: ArchConfig, kind: LayerKind, batch: int,
                      cache_len: int, dtype=torch.float32, device=None) -> dict:
     _check_kind(kind)
+    if kind[0] == "mamba":
+        return {"mamba": M.mamba_cache_init(batch, cfg.d_model, cfg.ssm, dtype,
+                                            device)}
     spec = _attn_spec(cfg, kind[0])
     return {"kv": L.kv_cache_init(batch, cache_len, spec, dtype, device)}
 
@@ -224,7 +234,8 @@ def init_layer_cache(cfg: ArchConfig, kind: LayerKind, batch: int,
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                dtype=torch.float32, device=None) -> dict:
     """Empty caches for every layer, in the parameter tree's layout
-    (float32 by default: the decode kernel's type)."""
+    (float32 by default: the decode kernel's type; Mamba layers keep their
+    conv window and state, whatever ``cache_len``)."""
     _check_supported(cfg)
     plan = layer_plan(cfg)
     cache: dict = {}
@@ -245,6 +256,10 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
 def decode_layer(params: Params, x: torch.Tensor, cfg: ArchConfig,
                  kind: LayerKind, entry: dict, pos: int):
     _check_kind(kind)
+    if kind[0] == "mamba":
+        y, mc = M.mamba_decode_step(params["mamba"], L.rmsnorm(params["ln"], x),
+                                    entry["mamba"], cfg.ssm)
+        return x + y, {"mamba": mc}
     spec = _attn_spec(cfg, kind[0])
     y, kv = L.attn_decode_step(params["attn"], L.rmsnorm(params["ln1"], x),
                                pos, entry["kv"], spec)
@@ -257,8 +272,9 @@ def decode_step(cfg: ArchConfig, params: Params, cache: dict,
                 tokens: torch.Tensor, pos: int) -> tuple[torch.Tensor, dict]:
     """One decode step: tokens [B,1], pos the next position (an int).
 
-    The caches are written in place (each layer's new slot) and returned;
-    the stacked layers' entries are views into the stacked cache."""
+    The caches are written in place (each attention layer's new slot, each
+    Mamba layer's conv window and state) and returned; the stacked layers'
+    entries are views into the stacked cache."""
     _check_supported(cfg)
     plan = layer_plan(cfg)
     x = _embed_inputs(cfg, params, {"tokens": tokens})

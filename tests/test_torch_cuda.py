@@ -12,7 +12,10 @@ bit for bit; the checks allow 1e-5 (the reference's solver tolerance)
 on a* and P*, and exact equality for the eq.-4 sums, plain and
 quantised, whose order of addition is the same; the decode attention
 (swa_decode) at rtol = atol = 2e-5, the reference's float32 tolerance for
-its decode kernel (online softmax against the dense one).  The drop-in
+its decode kernel (online softmax against the dense one); the SSD scan
+(ssd_scan) at 1e-4 against the sequential recurrence and 2e-4 against the
+plain chunked form, the reference's tolerances for its kernel
+(``tests/test_kernels.py``; sums in another order).  The drop-in
 solvers are
 held against the plain ``solve_joint`` / ``solve_joint_optimal`` at
 1e-5.  The loop engine and the sweep under an 8-bit uplink draw the same
@@ -39,11 +42,14 @@ from repro_torch.kernels.masked_aggregate import ops as agg_ops
 from repro_torch.kernels.masked_aggregate import ref as agg_ref
 from repro_torch.kernels.selection_solve import ops as solve_ops
 from repro_torch.kernels.selection_solve import ref as solve_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.kernels.swa_decode import ops as swa_ops
 from repro_torch.kernels.swa_decode import ref as swa_ref
 from repro_torch.launch.serve import BatchedServer, Request
+from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models import transformer as T
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 torch.set_num_threads(1)
 
@@ -52,6 +58,8 @@ FLIP_SHARE = 1e-3
 NOT_WHOLE = 7.9999995
 CNN_LEAVES = (72, 8, 1152, 16, 195216, 249, 2490, 10)
 DECODE_TOL = 2e-5
+SSD_SEQ_TOL = 1e-4
+SSD_TOL = 2e-4
 MODEL_TOL = 1e-4
 
 pytestmark = pytest.mark.cuda
@@ -301,3 +309,120 @@ def test_batched_server_on_the_card_launches_the_kernel(dev):
     assert all(len(r.out) == 5 for r in reqs)
     assert (cuda_lib.LAUNCHES["swa_decode"] - before
             == stats["decode_steps"] * cfg.n_layers)
+
+
+def _ssd_case(dev, b, s, h, p, n, seed, init=False):
+    """Mamba-shaped operands at the reference kernel tests' ranges."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, device=dev, generator=gen)
+    x = torch.randn(b, s, h, p, device=dev, generator=gen)
+    dt = u((b, s, h), 0.001, 0.1)
+    a = -u((h,), 0.5, 4.0)
+    bm = torch.randn(b, s, n, device=dev, generator=gen) * 0.3
+    cm = torch.randn(b, s, n, device=dev, generator=gen) * 0.3
+    d = torch.randn(h, device=dev, generator=gen)
+    s0 = torch.randn(b, h, p, n, device=dev, generator=gen) if init else None
+    return x, dt, a, bm, cm, d, s0
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 128, 16, 32, 16, 32),     # the reduced mamba2
+    (1, 256, 4, 64, 128, 256),    # mamba2-780m's widths, a single chunk
+    (2, 512, 3, 64, 128, 256),
+    (1, 192, 3, 48, 100, 96),     # ragged: tiles padded in P, N and cs
+    (3, 40, 5, 7, 5, 8),
+    (1, 130, 2, 33, 1, 65),
+])
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_scan_matches_plain_versions(dev, b, s, h, p, n, chunk, init):
+    """y and the final state against the plain chunked form; y against
+    the sequential recurrence (which starts from a zero state)."""
+    x, dt, a, bm, cm, d, s0 = _ssd_case(dev, b, s, h, p, n, s + p + n, init)
+    before = cuda_lib.LAUNCHES["ssd_scan"]
+    y, state = ssd_ops.ssd_apply(x, dt, a, bm, cm, d, chunk=chunk,
+                                 init_state=s0, return_state=True)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["ssd_scan"] == before + 1
+    plain_y, plain_state = ssd_ref.ssd_chunked_ref(x, dt, a, bm, cm, d, chunk, s0)
+    torch.testing.assert_close(y, plain_y, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(state, plain_state, rtol=SSD_TOL, atol=SSD_TOL)
+    if not init:
+        seq = ssd_ref.ssd_scan_ref(
+            x.permute(0, 2, 1, 3).reshape(b * h, s, p),
+            dt.permute(0, 2, 1).reshape(b * h, s), a.repeat(b),
+            bm.repeat_interleave(h, dim=0), cm.repeat_interleave(h, dim=0),
+            d.repeat(b))
+        torch.testing.assert_close(
+            y, seq.reshape(b, h, s, p).permute(0, 2, 1, 3),
+            rtol=SSD_SEQ_TOL, atol=SSD_SEQ_TOL)
+
+
+def test_ssd_scan_handles_large_decay(dev):
+    """dt * a of tens per step, as at mamba2-780m's widths: above the
+    diagonal exp(cum[l] - cum[s]) overflows, and must not leak NaN."""
+    x, dt, a, bm, cm, d, _ = _ssd_case(dev, 1, 512, 4, 64, 128, 9)
+    dt = dt * 300.0
+    a = a * 4.0
+    y, state = ssd_ops.ssd_apply(x, dt, a, bm, cm, d, chunk=256,
+                                 return_state=True)
+    plain_y, plain_state = ssd_ref.ssd_chunked_ref(x, dt, a, bm, cm, d, 256)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(state).all())
+    torch.testing.assert_close(y, plain_y, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(state, plain_state, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def test_ssd_scan_wrapper_checks_operands(dev):
+    x, dt, a, bm, cm, d, s0 = _ssd_case(dev, 1, 64, 2, 8, 4, 0, init=True)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_ops.ssd_apply(x.double(), dt, a, bm, cm, d, chunk=32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ssd_ops.ssd_apply(x, dt, a, bm.cpu(), cm, d, chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops.ssd_apply(x, dt, a, bm, cm, d, chunk=32,
+                          init_state=s0.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError, match="not divisible"):
+        ssd_ops.ssd_apply(x, dt, a, bm, cm, d, chunk=48)
+    with pytest.raises(ValueError, match="chunk <= 256"):
+        big = _ssd_case(dev, 1, 512, 1, 8, 4, 0)[:6]
+        ssd_ops.ssd_apply(*big, chunk=512)
+    with pytest.raises(ValueError, match="P <= 64"):
+        ssd_ops.ssd_apply(*_ssd_case(dev, 1, 32, 1, 65, 4, 0)[:6], chunk=32)
+    with pytest.raises(ValueError, match="N <= 128"):
+        ssd_ops.ssd_apply(*_ssd_case(dev, 1, 32, 1, 8, 129, 0)[:6], chunk=32)
+
+
+def test_mamba_prefill_on_the_card_launches_the_kernel(dev):
+    """A reduced mamba2 (4 stacked layers, 16 heads of 32, chunk 32): the
+    prefill on the card launches the kernel once per layer and agrees with
+    the plain path on the CPU, and teacher-forced decode (the recurrence)
+    agrees with it."""
+    cfg = ARCHS["mamba2-780m"].reduced(n_layers=4)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    tokens = torch.randint(0, cfg.vocab, (2, 96), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    before = cuda_lib.LAUNCHES["ssd_scan"]
+    full = make_prefill_step(cfg)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["ssd_scan"] == before + cfg.n_layers
+    plain = make_prefill_step(cfg)(tree_map(lambda t: t.cpu(), params),
+                                   {"tokens": tokens.cpu()})
+    torch.testing.assert_close(full.cpu(), plain, rtol=MODEL_TOL, atol=MODEL_TOL)
+    cache = T.init_cache(cfg, 2, 96, device=dev)
+    for i in range(96):
+        logits, cache = T.decode_step(cfg, params, cache, tokens[:, i:i + 1], i)
+        torch.testing.assert_close(logits[:, 0], full[:, i], rtol=MODEL_TOL,
+                                   atol=MODEL_TOL)
+    assert cuda_lib.LAUNCHES["ssd_scan"] == before + cfg.n_layers
+
+
+def test_batched_server_serves_mamba_on_the_card(dev):
+    cfg = ARCHS["mamba2-780m"].reduced()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    reqs = [Request(rid=i, prompt=torch.arange(4 + i).numpy() % cfg.vocab,
+                    max_new=5) for i in range(3)]
+    stats = BatchedServer(cfg, params, 2, cache_len=69, device=dev).run(reqs)
+    assert all(len(r.out) == 5 for r in reqs) and stats["tokens"] == 15

@@ -36,8 +36,7 @@ from repro.models import layers as ref_L
 from repro.models import transformer as ref_T
 from repro.models import zoo as ref_zoo
 from repro_torch.configs import ARCHS, INPUT_SHAPES, get_arch
-from repro_torch.convert import (transformer_params_from_numpy,
-                                 transformer_params_to_numpy)
+from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.kernels.swa_decode.ops import decode_attention, swa_decode
 from repro_torch.kernels.swa_decode.ref import swa_decode_ref
 from repro_torch.launch import serve
@@ -76,7 +75,7 @@ def small_model():
     """The reduced gemma3 in both packages, with the reference's weights."""
     ref_cfg, cfg = _cfgs()
     ref_params = ref_T.init_params(ref_cfg, jax.random.PRNGKey(0))
-    params = transformer_params_from_numpy(np_tree(ref_params), device="cpu")
+    params = params_from_numpy(np_tree(ref_params), device="cpu")
     return ref_cfg, cfg, ref_params, params
 
 
@@ -155,7 +154,7 @@ def test_rmsnorm_rope_and_mlp_match_reference():
     h = rng.normal(size=(2, 5, 32)).astype(np.float32)
     for act in ("gelu", "silu"):
         np.testing.assert_allclose(
-            np_(L.mlp_apply(transformer_params_from_numpy(mlp, "cpu"),
+            np_(L.mlp_apply(params_from_numpy(mlp, "cpu"),
                             torch.from_numpy(h), act)),
             np.asarray(ref_L.mlp_apply(mlp, jnp.asarray(h), act)), **LAYER_TOL)
 
@@ -168,7 +167,7 @@ def _attn_setup(window, d_model=32, h=4, kvh=2, dh=16):
     rng = np.random.default_rng(3)
     for name in ("q_norm", "k_norm"):
         p[name]["scale"] = rng.uniform(0.5, 1.5, dh).astype(np.float32)
-    return ref_spec, spec, p, transformer_params_from_numpy(p, "cpu"), rng
+    return ref_spec, spec, p, params_from_numpy(p, "cpu"), rng
 
 
 @pytest.mark.parametrize("grouped", [False, True])
@@ -254,7 +253,7 @@ def test_param_tree_matches_reference_at_full_width():
 
 def test_param_tree_round_trips_through_numpy(small_model):
     ref_cfg, cfg, ref_params, params = small_model
-    back = transformer_params_to_numpy(params)
+    back = params_to_numpy(params)
     assert _shapes(back) == _shapes(ref_params)
     for a, b in zip(tree_leaves(back), jax.tree_util.tree_leaves(ref_params)):
         np.testing.assert_array_equal(a, np.asarray(b))
@@ -263,11 +262,11 @@ def test_param_tree_round_trips_through_numpy(small_model):
 def test_registry_and_unported_blocks():
     assert get_arch("gemma3-1b") is ARCHS["gemma3-1b"]
     with pytest.raises(KeyError, match="not ported yet"):
-        get_arch("mamba2-780m")
+        get_arch("zamba2-7b")
     with pytest.raises(KeyError, match="unknown"):
         get_arch("no-such-arch")
     cfg = ARCHS["gemma3-1b"].reduced()
-    for period, slice_name in ((("mamba",), "mamba2-780m"),
+    for period, slice_name in ((("shared_attn",), "zamba2-7b"),
                                (("attn", "mla"), "deepseek")):
         bad = dataclasses.replace(cfg, period=period)
         with pytest.raises(NotImplementedError, match=slice_name):
