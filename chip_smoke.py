@@ -8,13 +8,16 @@ rounds, evaluated every 10); the flags set both.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. build the port's CUDA kernels from ``src/repro_torch/csrc`` and print
-   the card's name and power limit;
+1. build the port's CUDA kernels from ``src/repro_torch/csrc``, print
+   each kernel function's registers, spills and shared memory, and the
+   card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, at the
    slices' shapes and at ragged ones, within the stated tolerance;
-3. time each kernel with CUDA events beside its bound, its plain version
-   and (for the plain aggregate and the decode attention) one PyTorch
-   library call, and profile a few rounds of each sweep;
+3. time each kernel with CUDA events (the decode attention, whose
+   launches are shorter than the host's cost of making them, and the SSD
+   scan's passes by the profiler's device time) beside its bound, its
+   plain version and (for the plain aggregate and the decode attention)
+   one PyTorch library call, and profile a few rounds of each sweep;
 4. drive the first slice: ``run_grid`` over both paper scenarios and all
    four strategies at N = 100 devices with the 199,213-parameter CNN, the
    fused-kernel solve and the kernel aggregate, plus one exact
@@ -29,12 +32,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    parameters from a seeded generator), first teacher-forced decode
    against ``forward`` over 640 tokens, then ``BatchedServer`` on 8
    requests at 24 and at 600 new tokens, every attention layer of every
-   decode step through the decode kernel, and profile a few steps;
+   decode step through the decode kernel, and profile a few steps; then
+   the decode kernel's device time over the whole gen-600 run, every
+   step's launches made again at its position under the profiler;
 7. drive the Mamba2 slice: mamba2-780m at full width (780,382,464
    parameters from a seeded generator), prefilled through
    ``make_prefill_step`` at B = 1, S = 32,768 and at B = 4, S = 4,096,
-   every layer's scan through the SSD kernel (48 launches a prefill), one
-   prefill profiled; then teacher-forced decode (the recurrence) against
+   every layer's scan through the SSD kernel (48 launches a prefill, four
+   passes each), one prefill profiled; then teacher-forced decode (the
+   recurrence) against
    ``forward`` over 512 tokens, and ``BatchedServer`` on 8 requests;
 8. print the kernel record, the card, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -60,6 +66,9 @@ ROOT = Path(__file__).resolve().parent
 # outside the tensor cores, the type every kernel here computes in
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# TF32 on the tensor cores, dense; the SSD scan's 3xTF32 products make three
+# passes through them for each float32 product
+TF32_OPS_PER_S = 495e12
 # operations per element, counting each float32 arithmetic operation,
 # comparison, select and transcendental call as one (csrc/solve_common.cuh):
 # fused: init 18, then 50 steps of 38; selection: 61 feasibility tests of
@@ -126,6 +135,10 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sm_count(torch) -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
     fn()
@@ -138,6 +151,50 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_re(kernel: str) -> re.Pattern:
+    """The device kernels a wrapper launches, by name: ``<kernel>_kernel``
+    and its passes ``<kernel>_<pass>_kernel``."""
+    return re.compile(rf"(?<!\w){kernel}(_[a-z]+)?_kernel\b")
+
+
+def device_ms(torch, fn, reps: int, kernel: str | None = None):
+    """Device time of ``fn`` per call from the profiler, over ``reps``
+    warm calls: (all device operations, ``kernel``'s launches, and
+    ``kernel``'s launches by function name).  Unlike CUDA events around
+    back-to-back calls, it does not count the device's idle time while
+    the host makes the next launch.  A profile that recorded no device
+    time at all is taken again, up to twice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in events)
+        if total > 0:
+            break
+    check(total > 0, "the profiler recorded no device time")
+    pat = kernel_re(kernel) if kernel else None
+    mine = [e for e in events if pat and pat.search(e.key)]
+    by_name = {e.key: e.self_device_time_total / 1e3 / reps for e in mine}
+    return total / 1e3 / reps, sum(by_name.values()), by_name
+
+
+def dynamic_smem(source: Path) -> None:
+    """Print the dynamic shared memory a block of each kernel in
+    ``source``, which the compiler's log does not show: the sizes its
+    ``static_assert``s hold (the build has just checked them)."""
+    for size, what in re.findall(
+            r'static_assert\(sizeof\(\w+\) == (\d+), "(\w+): dynamic shared memory"\)',
+            source.read_text()):
+        print(f"  {what}: {int(size):,} bytes dynamic shared memory a block")
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -379,8 +436,8 @@ def profile_run(torch, label: str, fn, per: int, unit: str,
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / per
-    kern_ms = sum(e.self_device_time_total for e in events if kernel and
-                  re.search(rf"(?<!\w){kernel}_kernel\b", e.key)) / 1e3 / per
+    kern_events = [e for e in events if kernel and kernel_re(kernel).search(e.key)]
+    kern_ms = sum(e.self_device_time_total for e in kern_events) / 1e3 / per
     share = (f"; {kernel} {kern_ms:.3f} ms per {unit}, {kern_ms / busy_ms:.3f} "
              f"of device time, {kern_ms / wall_ms:.3f} of wall time"
              if kernel and busy_ms else "")
@@ -392,6 +449,11 @@ def profile_run(torch, label: str, fn, per: int, unit: str,
     for e in events[:12]:
         print(f"    {e.self_device_time_total / 1e3 / per:10.4f} ms/{unit} "
               f"{e.count / per:8.1f} calls a {unit}  {e.key[:90]}")
+    if len(kern_events) > 1:
+        print(f"  {kernel} by kernel function:")
+        for e in kern_events:
+            print(f"    {e.self_device_time_total / 1e3 / per:10.4f} ms/{unit} "
+                  f"{e.count / per:8.1f} calls a {unit}  {e.key[:90]}")
 
 
 def profile_sweep(torch, dev, label: str, built, kernel: str,
@@ -679,7 +741,8 @@ def check_decode(torch, dev) -> float:
                               ring_positions(torch, w, qpos, dev)))
     for b, w, hkv, g, dh, window, qpos in ((2, 70, 1, 4, 64, None, 69),
                                            (2, 64, 1, 4, 16, 64, 129),
-                                           (3, 130, 2, 3, 80, 64, 200)):
+                                           (3, 130, 2, 3, 80, 64, 200),
+                                           (3, 130, 2, 3, 30, None, 200)):
         cases.append((b, w, hkv, g, dh, window, qpos,
                       ring_positions(torch, w, qpos, dev)))
     worst = 0.0
@@ -697,6 +760,49 @@ def check_decode(torch, dev) -> float:
         check(ok, f"swa_decode W={w} G={g} dh={dh} window={window}: "
                   f"error {err} beyond {DECODE_TOL}")
         worst = max(worst, err)
+    # the split's edges at gemma3's heads: split counts from one to many
+    # (a W that none of them divides, rings filling so that the later
+    # splits hold no valid slot, a window that empties most of them), a
+    # single slot, and a long ring at B = 16 under a window
+    for i, (b, w, window, qpos, splits) in enumerate((
+            (4, 512, None, 100, (1, 2, 7, 33, 64)),
+            (4, 97, 64, 300, (1, 5, 64)),
+            (4, 664, 512, 1327, (1, 20, 64)),
+            (2, 1, None, 0, (1,)),
+            (16, 32768, 512, 40000, (1, 17, 64)))):
+        q, k, v = decode_operands(torch, dev, b, w, *GEMMA3_HEADS, 50 + i)
+        pos = ring_positions(torch, w, qpos, dev)
+        plain = ref.swa_decode_ref(q, k, v, pos, qpos, window=window)
+        for nsplit in splits:
+            out = ops._launch(q, k, v, pos, qpos, window, nsplit)
+            torch.cuda.synchronize()
+            err = float((out - plain).abs().max())
+            print(f"  swa_decode B={b:>2} W={w:>5} window={window} qpos={qpos:>5} "
+                  f"nsplit={nsplit:>3}: max|kernel - plain| = {err:.3e}")
+            check(bool(torch.isfinite(out).all()) and bool(torch.allclose(
+                out, plain, rtol=DECODE_TOL, atol=DECODE_TOL)),
+                f"swa_decode W={w} nsplit={nsplit}: error {err} beyond {DECODE_TOL}")
+            worst = max(worst, err)
+        del q, k, v, plain
+    # no valid slot at all: the output is 0, with one split or many
+    q, k, v = decode_operands(torch, dev, 2, 256, 2, 4, 64, 60)
+    pos = torch.full((256,), -1, dtype=torch.int32, device=dev)
+    for nsplit in (1, 4, 64):
+        out = ops._launch(q, k, v, pos, 5, None, nsplit)
+        check(bool((out == 0).all()), f"swa_decode, no valid slot, nsplit={nsplit}: "
+              f"max|out| {float(out.abs().max())}")
+    print("  swa_decode, no valid slot, nsplit 1, 4 and 64: every output 0")
+    # the same bits from launch to launch at the split the wrapper picks
+    for b, w in ((4, 664), (16, 32768)):
+        q, k, v = decode_operands(torch, dev, b, w, *GEMMA3_HEADS, 70)
+        pos = ring_positions(torch, w, 2 * w - 1, dev)
+        outs = [ops.swa_decode(q, k, v, pos, 2 * w - 1, window=None)
+                for _ in range(3)]
+        check(all(torch.equal(outs[0], o) for o in outs[1:]),
+              f"swa_decode B={b} W={w}: repeated launches differ")
+        print(f"  swa_decode B={b:>2} W={w:>5} (nsplit "
+              f"{ops.split_count(b, w, sm_count(torch))}): 3 launches, the "
+              f"same bits")
     return worst
 
 
@@ -739,8 +845,15 @@ def time_decode(torch, dev) -> dict:
         lib_err = float((lib[0]().reshape(ops_[0][0].shape) - plain[0]()).abs().max())
         return kern, plain, lib, lib_err
 
-    def timed(calls, reps):
-        return cuda_ms(torch, lambda: [c() for c in calls], reps)
+    def timed(calls, reps, kernel=None):
+        """Per round of ``calls``: the profiler's device time (the
+        kernel's launches where ``kernel`` names it, else every device
+        operation) and, beside it, CUDA events around back-to-back
+        rounds, which also count the device's wait for the host."""
+        def run():
+            return [c() for c in calls]
+        dev_all, dev_kern, _ = device_ms(torch, run, reps, kernel)
+        return (dev_kern if kernel else dev_all), cuda_ms(torch, run, reps)
 
     b, hkv, g, dh = 4, *GEMMA3_HEADS
     # one decode step of the gen-600 serving run near its end: 22 local
@@ -748,27 +861,33 @@ def time_decode(torch, dev) -> dict:
     local = shape_calls(b, 512, 512, 22, 100)
     glob = shape_calls(b, 664, None, 4, 200)
     step = [x + y for x, y in zip(local[:3], glob[:3])]
-    ms, plain_ms, lib_ms = (timed(step[0], 50), timed(step[1], 5),
-                            timed(step[2], 20))
+    (ms, ms_ev), (plain_ms, plain_ev), (lib_ms, lib_ev) = (
+        timed(step[0], 50, "swa_decode"), timed(step[1], 5), timed(step[2], 20))
     lb, _ = decode_bound(b, 512, hkv, g, dh)
     gb, by = decode_bound(b, 664, hkv, g, dh)
     b_ms = 22 * lb + 4 * gb
     print(f"  swa_decode one serving step (26 launches: 22 x B=4 W=512 window 512, "
-          f"4 x B=4 W=664): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, SDPA "
-          f"{lib_ms:.6f} ms (max|SDPA - plain| {max(local[3], glob[3]):.2e}), "
-          f"bound {b_ms:.6f} ms ({by}); kernel at {b_ms / ms:.3f} of its bound")
+          f"4 x B=4 W=664), device time: kernel {ms:.6f} ms, plain {plain_ms:.6f} "
+          f"ms, SDPA {lib_ms:.6f} ms (max|SDPA - plain| "
+          f"{max(local[3], glob[3]):.2e}), bound {b_ms:.6f} ms ({by}); kernel "
+          f"at {b_ms / ms:.3f} of its bound; CUDA events over back-to-back "
+          f"steps: kernel {ms_ev:.6f}, plain {plain_ev:.6f}, SDPA {lib_ev:.6f} ms")
     rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                library_ms=lib_ms)
     for bb, w, window, copies, reps in DECODE_TIMING_SHAPES:
         kern, plain, lib, lib_err = shape_calls(bb, w, window, copies, w)
-        k_ms = timed(kern, reps) / copies
-        p_ms = timed(plain, max(reps // 10, 2)) / copies
-        l_ms = timed(lib, reps) / copies
+        (k_ms, k_ev), (p_ms, p_ev), (l_ms, l_ev) = (
+            timed(kern, reps, "swa_decode"), timed(plain, max(reps // 10, 2)),
+            timed(lib, reps))
+        k_ms, k_ev, p_ms, p_ev, l_ms, l_ev = (
+            t / copies for t in (k_ms, k_ev, p_ms, p_ev, l_ms, l_ev))
         s_ms, s_by = decode_bound(bb, w, hkv, g, dh)
-        print(f"  swa_decode B={bb:>2} W={w:>5} window={window}: kernel {k_ms:.6f} "
-              f"ms, plain {p_ms:.6f} ms, SDPA {l_ms:.6f} ms (max|SDPA - plain| "
-              f"{lib_err:.2e}), bound {s_ms:.6f} ms ({s_by}); kernel at "
-              f"{s_ms / k_ms:.3f} of its bound")
+        print(f"  swa_decode B={bb:>2} W={w:>5} window={window} (nsplit "
+              f"{ops.split_count(bb * hkv, w, sm_count(torch))}), device time: "
+              f"kernel {k_ms:.6f} ms, plain {p_ms:.6f} ms, SDPA {l_ms:.6f} ms "
+              f"(max|SDPA - plain| {lib_err:.2e}), bound {s_ms:.6f} ms ({s_by}); "
+              f"kernel at {s_ms / k_ms:.3f} of its bound; CUDA events: kernel "
+              f"{k_ev:.6f}, plain {p_ev:.6f}, SDPA {l_ev:.6f} ms")
         del kern, plain, lib
     return rec
 
@@ -814,7 +933,7 @@ def serve_gemma3(torch, dev) -> dict:
     check(err <= SELF_CHECK_TOL, f"decode differs from forward by {err}")
     del full, cache, logits
 
-    launches = 0
+    launches, per_gen = 0, {}
     for gen in SERVE_GENS:
         rng = np.random.default_rng(0)          # the reference server's recipe
         reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, rng.integers(4, 24))
@@ -840,11 +959,56 @@ def serve_gemma3(torch, dev) -> dict:
               f"gen {gen}: {n_launch} swa_decode launches, not {steps} x "
               f"{cfg.n_layers}")
         launches += n_launch
+        per_gen[gen] = n_launch
     # where a step's time goes near the end of the last wave (rings full)
     last = max(len(r.prompt) for r in reqs[4:]) + SERVE_GENS[-1]
     profile_decode(torch, dev, cfg, params, server.cache, last, server.b,
                    "swa_decode")
-    return dict(launches=launches)
+    n, run_s = replay_decode_run(torch, dev, cfg, reqs, server.b, SERVE_GENS[-1])
+    check(n == per_gen[SERVE_GENS[-1]],
+          f"the replay made {n} launches, the serving run {per_gen[SERVE_GENS[-1]]}")
+    print(f"  swa_decode over the gen-{SERVE_GENS[-1]} serving run: {n} launches "
+          f"made again at their positions, {run_s:.6f} s of device time "
+          f"({run_s / n * 1e6:.3f} us a launch)")
+    return dict(launches=launches, run_s=run_s)
+
+
+def replay_decode_run(torch, dev, cfg, reqs, batch: int, gen: int):
+    """The decode kernel's device time over a serving run like the one
+    just made: each wave's decode steps (positions 0 .. its longest prompt
+    + gen - 1, as ``BatchedServer`` makes them) at every attention layer,
+    each layer on a cache of its served shape with the ring as that step
+    leaves it, under the profiler.  The time of a launch depends on the
+    shapes and the ring's fill, not on the values.  Returns (launches,
+    seconds)."""
+    from repro_torch.kernels.swa_decode import ops
+    from repro_torch.models import layers as L
+    hkv, g, dh = GEMMA3_HEADS
+    rng = torch.Generator(device=dev).manual_seed(5)
+    layers = []
+    for mixer in cfg.layer_kinds():
+        spec = L.layer_spec(cfg.attn, mixer)
+        kv = L.kv_cache_init(batch, 64 + gen, spec, device=dev)
+        layers.append((torch.randn(kv.k.shape, device=dev, generator=rng),
+                       torch.randn(kv.v.shape, device=dev, generator=rng),
+                       spec.window))
+    q = torch.randn(batch, hkv, g, dh, device=dev, generator=rng) * dh ** -0.5
+    positions = [i for w0 in range(0, len(reqs), batch)
+                 for i in range(max(len(r.prompt) for r in reqs[w0:w0 + batch])
+                                + gen)]
+    qp = torch.tensor(positions, device=dev)[:, None]
+    rings = {}
+    for w in {k.shape[1] for k, _, _ in layers}:
+        latest = qp - (qp - torch.arange(w, device=dev)) % w
+        rings[w] = torch.where(latest >= 0, latest, -1).to(torch.int32)
+
+    def run():
+        for i, qpos in enumerate(positions):
+            for k, v, window in layers:
+                ops.swa_decode(q, k, v, rings[k.shape[1]][i], qpos, window=window)
+
+    _, kern_ms, _ = device_ms(torch, run, 1, "swa_decode")
+    return len(positions) * len(layers), kern_ms / 1e3
 
 
 def profile_decode(torch, dev, cfg, params, cache, pos0: int, batch: int,
@@ -920,6 +1084,11 @@ def check_ssd(torch, dev, cfg, params) -> float:
             ("ragged", (3, 40, 5, 7, 5, 8), False, True)):
         ops_, s0 = ssd_operands(torch, dev, b, s, hh, pp, nn, s + pp + nn, init)
         cases.append((label, ops_, s0, ch, seq))
+    # decays of hundreds per step: above the diagonal exp(cum[l] - cum[s])
+    # overflows, and must not leak into y or the state
+    (x, dt, a, bm, cm, d), _ = ssd_operands(torch, dev, 1, 1024, h, p, n, 99)
+    cases.append(("mamba2, dt x 300 and A x 4", (x, dt * 300.0, a * 4.0, bm, cm, d),
+                  None, cs, False))
     worst = 0.0
     for label, ops_, s0, ch, seq in cases:
         x = ops_[0]
@@ -953,46 +1122,81 @@ def check_ssd(torch, dev, cfg, params) -> float:
         print(line)
         check(ok, f"ssd_scan {label}: beyond tolerance ({err})")
         del y, state, plain_y, plain_state
+    # the same bits from launch to launch, at the first prefill's shape
+    ops_ = cases[0][1]
+    runs = [ops.ssd_apply(*ops_, chunk=cs, return_state=True) for _ in range(3)]
+    check(all(torch.equal(y, runs[0][0]) and torch.equal(st, runs[0][1])
+              for y, st in runs[1:]), "ssd_scan: repeated launches differ")
+    print(f"  ssd_scan {cases[0][0]}: 3 launches, the same bits")
     return worst
 
 
-def ssd_bound(b, s, h, p, n, cs) -> tuple[float, str]:
-    """The least work of one scan: C.B^T once per (batch row, chunk) and
-    the products over the causal triangle only (s <= l); x, B, C, dt, a,
-    D read once, y and the final state written once.  Each multiply-add counts two operations, as do the products'
-    elementwise steps (exp as one)."""
+def ssd_work(b, s, h, p, n, cs) -> tuple[float, float, float]:
+    """The least work of one scan, (operations of the products, the other
+    operations, bytes): C.B^T once per (batch row, chunk) and the products
+    over the causal triangle only (s <= l); x, B, C, dt, a, D read once, y
+    and the final state written once.  Each multiply-add counts two
+    operations, as do the elementwise steps (exp as one)."""
     tri = cs * (cs + 1) // 2
-    per_chunk = 2 * tri * n + h * (
-        2 * tri * p + 4 * tri           # intra product; L: diff, exp, two products
-        + 2 * cs * p * n + cs * p       # inter product, its decay
-        + 2 * cs * p * n + p * n        # state update, its decay
-        + 3 * cs * p + 5 * cs)          # D x and the sums; cumsum and weights
-    ops = b * (s // cs) * per_chunk
+    products = 2 * tri * n + h * (      # C.B^T; then per head:
+        2 * tri * p                     # the intra product
+        + 2 * cs * p * n                # the inter product
+        + 2 * cs * p * n)               # the state update
+    other = h * (4 * tri                # L: diff, exp, two products
+                 + cs * p + p * n       # the inter term's and the state's decay
+                 + 3 * cs * p + 5 * cs)  # D x and the sums; cumsum and weights
+    nc = b * (s // cs)
     nbytes = 4 * (2 * b * s * h * p + 2 * b * s * n + b * s * h + 2 * h
                   + b * h * p * n)
-    return bound_ms(nbytes, ops)
+    return nc * products, nc * other, nbytes
 
 
-def time_ssd(torch, dev) -> dict:
-    """CUDA-event times of the SSD kernel and its plain chunked version
-    per launch at both prefill shapes; the record holds B = 1, S = 32,768
-    (prefill_32k's row).  No single PyTorch call computes the scan."""
+def ssd_bound(b, s, h, p, n, cs) -> tuple[float, str, float]:
+    """(bound, what bounds it, the float32-only bound): the kernel's
+    products run on the tensor cores in 3xTF32, three TF32 products for
+    each float32 one, and the rest in float32 on the CUDA cores.  The
+    float32-only bound prices every operation at the CUDA cores' rate, as
+    the bound of the first, SIMT design did."""
+    products, other, nbytes = ssd_work(b, s, h, p, n, cs)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = products / (TF32_OPS_PER_S / 3) + other / FP32_OPS_PER_S
+    fp32_ms = bound_ms(nbytes, products + other)[0]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", fp32_ms)
+
+
+def time_ssd(torch, dev) -> tuple[dict, list]:
+    """CUDA-event times of the SSD kernel (its four passes' device time
+    apart, from the profiler) and its plain chunked version per launch at
+    both prefill shapes.  Returns the record, which holds B = 1, S = 32,768
+    (prefill_32k's row), and the kernel's ms at each prefill shape.  No
+    single PyTorch call computes the scan."""
     from repro_torch.kernels.ssd_scan import ops, ref
     h, p, n, cs = MAMBA2_SSD
-    rec = None
+    rec, per_shape = None, []
     for b, s in MAMBA2_PREFILLS:
         ops_, _ = ssd_operands(torch, dev, b, s, h, p, n, 7 * s + b)
         ms = cuda_ms(torch, lambda: ops.ssd_apply(*ops_, chunk=cs), 10)
+        _, dev_ms, passes = device_ms(
+            torch, lambda: ops.ssd_apply(*ops_, chunk=cs), 3, "ssd_scan")
         plain_ms = cuda_ms(torch, lambda: ref.ssd_chunked_ref(*ops_, cs), 3)
-        b_ms, b_by = ssd_bound(b, s, h, p, n, cs)
+        b_ms, b_by, fp32_ms = ssd_bound(b, s, h, p, n, cs)
         print(f"  ssd_scan B={b} S={s} (H={h} P={p} N={n} chunk={cs}): kernel "
               f"{ms:.6f} ms, plain {plain_ms:.6f} ms, library none, bound "
-              f"{b_ms:.6f} ms ({b_by}); kernel at {b_ms / ms:.3f} of its bound")
+              f"{b_ms:.6f} ms ({b_by}: products at 495 / 3 TFLOP/s, the "
+              f"rest at 67); kernel at {b_ms / ms:.3f} of its bound and "
+              f"{fp32_ms / ms:.3f} of its float32-only bound ({fp32_ms:.6f} "
+              f"ms, every operation at 67 TFLOP/s)")
+        print(f"    its passes by the profiler ({dev_ms:.6f} ms of device time "
+              f"a scan, by kernel function):")
+        for name, t in passes.items():
+            print(f"    {t:10.6f} ms  {t / dev_ms:.3f}  {name[:90]}")
+        per_shape.append(ms)
         if rec is None:
             rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                        library_ms=None)
         del ops_
-    return rec
+    return rec, per_shape
 
 
 def init_mamba2(torch, dev):
@@ -1141,6 +1345,11 @@ def main() -> int:
                  [f"(no compiler log beside {lib.name})"]):
         if "registers" in line or "spill" in line or line[:2] in ("==", "(n"):
             print("  " + line.strip())
+        elif "entry function" in line:      # the kernel the next lines describe
+            name = re.search(r"[a-z][a-z_]*_kernel(ILi\d+ELi\d+E)?", line)
+            print("  " + (re.sub(r"ILi(\d+)ELi(\d+)E", r"<\1, \2>", name.group(0))
+                          if name else line.strip()))
+    dynamic_smem(cuda_lib.CSRC / "ssd_scan.cu")
 
     print("[2] kernels against their plain versions" + at(), flush=True)
     errs = check_solvers(torch, dev)
@@ -1153,7 +1362,7 @@ def main() -> int:
     print("[3] times (CUDA events)" + at(), flush=True)
     rec = time_kernels(torch, dev)
     rec["swa_decode"] = time_decode(torch, dev)
-    rec["ssd_scan"] = time_ssd(torch, dev)
+    rec["ssd_scan"], ssd_ms = time_ssd(torch, dev)
     time_round_parts(torch, dev)
     profile_sweep(torch, dev, "grid", grid_plans(dev, 5), "masked_aggregate")
     plans, _, cfgs, trains, tests, _ = quantized_plans(torch, dev, 5, 5)
@@ -1173,11 +1382,18 @@ def main() -> int:
         qout["launches"]["quantized_masked_aggregate"]
 
     print("[6] serving gemma3-1b at full width" + at(), flush=True)
-    out["launches"]["swa_decode"] = serve_gemma3(torch, dev)["launches"]
+    served = serve_gemma3(torch, dev)
+    out["launches"]["swa_decode"] = served["launches"]
 
     print("[7] mamba2-780m at full width: prefill and serving" + at(), flush=True)
     out["launches"]["ssd_scan"] = run_mamba2(torch, dev, *mamba2)["launches"]
     del mamba2
+    per_prefill = out["launches"]["ssd_scan"] // len(MAMBA2_PREFILLS)
+    ssd_s = per_prefill * sum(ssd_ms) / 1e3
+    print(f"  the two kernels on their main paths: ssd_scan over the two "
+          f"prefills {per_prefill} x ({ssd_ms[0]:.6f} + {ssd_ms[1]:.6f}) ms = "
+          f"{ssd_s:.6f} s; swa_decode over the gen-{SERVE_GENS[-1]} serving run "
+          f"{served['run_s']:.6f} s")
 
     sources = {"fused_solve": ("src/repro_torch/csrc/selection_solve.cu",
                                "src/repro/kernels/selection_solve/kernel.py:143"),

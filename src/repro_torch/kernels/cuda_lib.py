@@ -41,8 +41,8 @@ _SIGNATURES = {
     "repro_selection_solve": [_P] * 6 + [_LL, _F, _F, _F, _P],
     "repro_masked_aggregate": [_P] * 3 + [_I, _I, _LL, _P],
     "repro_quantized_masked_aggregate": [_P] * 6 + [_I, _I, _LL, _P],
-    "repro_swa_decode": [_P] * 5 + [_I] * 5 + [_LL, _LL, _P],
-    "repro_ssd_scan": [_P] * 9 + [_I] * 6 + [_P],
+    "repro_swa_decode": [_P] * 7 + [_I] * 6 + [_LL, _LL, _P],
+    "repro_ssd_scan": [_P] * 12 + [_I] * 6 + [_P],
 }
 
 _library: Optional[ctypes.CDLL] = None

@@ -3,10 +3,14 @@
 
 ``ssd_apply`` takes the model's layout (x [B,S,H,P], dt [B,S,H], B/C
 [B,S,N] shared by the heads).  For CPU tensors it runs the plain chunked
-version of ``ref.py``; for CUDA tensors it launches the kernel of
-``csrc/ssd_scan.cu`` on the current stream, or raises.  The kernel reads
-B/C by batch row and x/dt in place: unlike the reference's wrapper it
-neither repeats B/C over the heads nor transposes x.
+version of ``ref.py``; for CUDA tensors it launches the kernels of
+``csrc/ssd_scan.cu`` on the current stream (four passes, chunks in
+parallel; ``ref.ssd_passes_ref`` mirrors them), or raises.  The kernels
+read B/C by batch row and x/dt in place: unlike the reference's wrapper
+they neither repeat B/C over the heads nor transpose x.  The wrapper
+allocates the passes' scratch: C.B^T once per (batch row, chunk), the
+chunk states (overwritten in place by the states entering each chunk)
+and the decays' cumulative sums.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import torch
 from repro_torch.kernels.cuda_lib import LAUNCHES, check_operands, launch
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 
-# the kernel's shared-memory tiles hold at most these
+# the kernels' shared-memory tiles hold at most these
 MAX_HEAD_DIM = 64
 MAX_STATE = 128
 MAX_CHUNK = 256
@@ -58,10 +62,15 @@ def ssd_apply(x, dt, a, b_mat, c_mat, d_skip, *, chunk: int = 128,
         raise ValueError(f"the kernel takes P <= {MAX_HEAD_DIM}, N <= "
                          f"{MAX_STATE} and chunk <= {MAX_CHUNK}, got P={p}, "
                          f"N={n}, chunk={chunk}")
+    nc = s // chunk
     y = torch.empty_like(x)
     state = x.new_empty((bsz, h, p, n))
+    scores = x.new_empty((bsz, nc, chunk, chunk))
+    states = x.new_empty((bsz, nc, h, p, n))
+    cum = x.new_empty((bsz, nc, h, chunk))
     launch("repro_ssd_scan", *(t.data_ptr() for t in operands),
            0 if init_state is None else init_state.data_ptr(),
-           y.data_ptr(), state.data_ptr(), bsz, s, h, p, n, chunk)
+           *(t.data_ptr() for t in (y, state, scores, states, cum)),
+           bsz, s, h, p, n, chunk)
     LAUNCHES["ssd_scan"] += 1
     return (y, state) if return_state else y

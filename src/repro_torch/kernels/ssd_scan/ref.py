@@ -7,6 +7,9 @@ independent of the chunked algorithm, in the reference kernel's folded
 ``repro.models.mamba2.ssd_chunked`` in the model's [B, S, H, ·] layout:
 what the CPU path runs and what the kernel is held against on the card
 (at S = 32,768 the sequential form costs 32,768 host steps).
+``ssd_passes_ref`` writes out the kernel's own decomposition, the four
+passes of ``csrc/ssd_scan.cu``, for the tests; nothing on the main path
+calls it.
 """
 from __future__ import annotations
 
@@ -92,4 +95,55 @@ def ssd_chunked_ref(x, dt, a, b_mat, c_mat, d_skip, chunk: int,
     y_inter = torch.einsum("bcln,bchpn->bclhp", cb, entering) \
         * decay_out[..., None]
     y = y_intra + y_inter + d_skip[None, None, :, None] * xb
+    return y.reshape(bsz, s, h, p), carry
+
+
+def ssd_passes_ref(x, dt, a, b_mat, c_mat, d_skip, chunk: int,
+                   init_state=None):
+    """The chunk-parallel passes of the CUDA kernel, in the shapes of its
+    scratch; the arguments and results of ``ssd_chunked_ref``.
+
+    1. the decays' inclusive cumsum along each chunk, and C.B^T once per
+       (batch row, chunk), shared by the heads;
+    2. the chunk states S_c = sum_s x[s] (w[s] B[s])^T, w[s] = exp(total -
+       cum[s]) dt[s];
+    3. the state passing, in order over the chunks: the state entering
+       chunk c takes S_c's place, and the last carry is the final state;
+    4. the outputs: exp(cum[l]) (C[l] . S_in) + D x[l], then the intra term,
+       pass 1's scores masked (the exponent selected to 0 above the
+       diagonal, never a product with the mask), decayed and weighted by
+       dt, times x.
+    """
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    assert s % chunk == 0, f"seq {s} not divisible by chunk {chunk}"
+    nc, cs = s // chunk, chunk
+    xb = x.reshape(bsz, nc, cs, h, p)
+    dtb = dt.reshape(bsz, nc, cs, h)
+    bb = b_mat.reshape(bsz, nc, cs, n)
+    cb = c_mat.reshape(bsz, nc, cs, n)
+
+    # pass 1
+    cum = torch.cumsum(dtb * a, dim=2)                     # [B,nc,cs,H]
+    scores = torch.einsum("bcln,bcsn->bcls", cb, bb)       # [B,nc,cs,cs]
+    # pass 2
+    total = cum[:, :, -1]                                  # [B,nc,H]
+    w = torch.exp(total[:, :, None] - cum) * dtb           # [B,nc,cs,H]
+    states = torch.einsum("bcshp,bcsn->bchpn", w[..., None] * xb, bb)
+    # pass 3
+    carry = (torch.zeros((bsz, h, p, n), dtype=x.dtype, device=x.device)
+             if init_state is None else init_state)
+    for c in range(nc):
+        s_c = states[:, c].clone()
+        states[:, c] = carry
+        carry = carry * torch.exp(total[:, c])[:, :, None, None] + s_c
+    # pass 4
+    cum_h = cum.transpose(2, 3)                            # [B,nc,H,cs]
+    causal = torch.tril(torch.ones((cs, cs), dtype=torch.bool, device=x.device))
+    expo = torch.where(causal, cum_h[..., :, None] - cum_h[..., None, :], 0.0)
+    m = torch.where(causal, scores[:, :, None] * torch.exp(expo)
+                    * dtb.transpose(2, 3)[:, :, :, None, :], 0.0)
+    y = (torch.einsum("bcln,bchpn->bclhp", cb, states) * torch.exp(cum)[..., None]
+         + d_skip[None, None, :, None] * xb)
+    y = y + torch.einsum("bchls,bcshp->bclhp", m, xb)
     return y.reshape(bsz, s, h, p), carry

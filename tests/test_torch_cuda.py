@@ -265,6 +265,91 @@ def test_swa_decode_gemma3_shapes_match_plain_version(dev, w, window):
             rtol=DECODE_TOL, atol=DECODE_TOL)
 
 
+@pytest.mark.parametrize("w,window,qpos", [
+    (512, None, 100),           # a ring filling: splits past slot 100 empty
+    (512, 128, 2000),           # a window: most splits hold no valid slot
+    (97, None, 300),            # a W none of the split counts divides
+    (664, None, 1327),          # gemma3's global ring, full
+])
+@pytest.mark.parametrize("nsplit", [1, 2, 7, 33, 64])
+def test_swa_decode_splits_match_plain_version(dev, w, window, qpos, nsplit):
+    """Split counts from one to many, with empty splits and splits that
+    hold no valid slot: the kernel against its plain version and against
+    the split written out (``swa_decode_split_ref``)."""
+    q, k, v = _decode_case(dev, 4, w, 1, 4, 256, w + nsplit)
+    pos = _ring_positions(w, qpos, dev)
+    out = swa_ops._launch(q, k, v, pos, qpos, window, nsplit)
+    torch.testing.assert_close(
+        out, swa_ref.swa_decode_ref(q, k, v, pos, qpos, window=window),
+        rtol=DECODE_TOL, atol=DECODE_TOL)
+    torch.testing.assert_close(
+        out, swa_ref.swa_decode_split_ref(q, k, v, pos, qpos, window=window,
+                                          nsplit=nsplit),
+        rtol=DECODE_TOL, atol=DECODE_TOL)
+
+
+@pytest.mark.parametrize("nsplit", [1, 3])
+def test_swa_decode_ragged_head_dim_matches_plain_version(dev, nsplit):
+    """dh = 30: the kernel's 4-byte loads and stores, one split and many."""
+    q, k, v = _decode_case(dev, 3, 130, 2, 3, 30, nsplit)
+    pos = _ring_positions(130, 200, dev)
+    torch.testing.assert_close(
+        swa_ops._launch(q, k, v, pos, 200, None, nsplit),
+        swa_ref.swa_decode_ref(q, k, v, pos, 200, window=None),
+        rtol=DECODE_TOL, atol=DECODE_TOL)
+
+
+@pytest.mark.parametrize("nsplit", [1, 4, 64])
+def test_swa_decode_without_valid_slots_is_zero(dev, nsplit):
+    q, k, v = _decode_case(dev, 2, 256, 2, 4, 64, nsplit)
+    pos = torch.full((256,), -1, dtype=torch.int32, device=dev)
+    out = swa_ops._launch(q, k, v, pos, 5, None, nsplit)
+    assert bool((out == 0).all())
+
+
+@pytest.mark.parametrize("b,w,window,qpos", [
+    (2, 1, None, 0),            # a single slot
+    (16, 32768, 512, 40000),    # a long ring under a window
+    (16, 32768, None, 40000),
+])
+def test_swa_decode_edge_shapes_match_plain_version(dev, b, w, window, qpos):
+    q, k, v = _decode_case(dev, b, w, 1, 4, 256, w)
+    pos = _ring_positions(w, qpos, dev)
+    torch.testing.assert_close(
+        swa_ops.swa_decode(q, k, v, pos, qpos, window=window),
+        swa_ref.swa_decode_ref(q, k, v, pos, qpos, window=window),
+        rtol=DECODE_TOL, atol=DECODE_TOL)
+
+
+@pytest.mark.parametrize("b,w,nsplit", [(4, 664, 21), (16, 32768, 17), (3, 97, 5)])
+def test_swa_decode_repeats_bit_for_bit(dev, b, w, nsplit):
+    """Consecutive launches at one shape give the same bits: the merge
+    runs in split order and the counter is left at 0 for the next."""
+    q, k, v = _decode_case(dev, b, w, 1, 4, 256, 7)
+    pos = _ring_positions(w, 2 * w - 1, dev)
+    outs = [swa_ops._launch(q, k, v, pos, 2 * w - 1, None, nsplit)
+            for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_swa_decode_streams_keep_their_own_counters(dev):
+    """Launches queued on two streams at once, each at many splits: every
+    output matches the one made alone, since each stream has its own
+    last-block counters."""
+    q, k, v = _decode_case(dev, 4, 4096, 1, 4, 256, 11)
+    pos = _ring_positions(4096, 8191, dev)
+    alone = swa_ops._launch(q, k, v, pos, 8191, None, 64)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    outs = []
+    torch.cuda.synchronize()
+    for _ in range(8):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(swa_ops._launch(q, k, v, pos, 8191, None, 64))
+    torch.cuda.synchronize()
+    assert all(torch.equal(alone, o) for o in outs)
+
+
 def test_swa_decode_wrapper_checks_operands(dev):
     q, k, v = _decode_case(dev, 1, 8, 1, 4, 64, 0)
     pos = torch.arange(8, device=dev, dtype=torch.int32)
@@ -357,6 +442,32 @@ def test_ssd_scan_matches_plain_versions(dev, b, s, h, p, n, chunk, init):
         torch.testing.assert_close(
             y, seq.reshape(b, h, s, p).permute(0, 2, 1, 3),
             rtol=SSD_SEQ_TOL, atol=SSD_SEQ_TOL)
+
+
+@pytest.mark.parametrize("b,s", [(1, 4096), (4, 1024)])
+def test_ssd_scan_prefill_shapes_match_plain_versions(dev, b, s):
+    """mamba2-780m's widths (48 heads of 64, d_state 128, chunk 256) at the
+    two prefills' batches, cut in S: against the chunked form and the four
+    passes written out, y and the final state."""
+    x, dt, a, bm, cm, d, _ = _ssd_case(dev, b, s, 48, 64, 128, s + b)
+    y, state = ssd_ops.ssd_apply(x, dt, a, bm, cm, d, chunk=256,
+                                 return_state=True)
+    for plain in (ssd_ref.ssd_chunked_ref, ssd_ref.ssd_passes_ref):
+        plain_y, plain_state = plain(x, dt, a, bm, cm, d, 256)
+        torch.testing.assert_close(y, plain_y, rtol=SSD_TOL, atol=SSD_TOL)
+        torch.testing.assert_close(state, plain_state, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [(1, 1024, 48, 64, 128, 256),
+                                             (3, 40, 5, 7, 5, 8)])
+def test_ssd_scan_repeats_bit_for_bit(dev, b, s, h, p, n, chunk):
+    """Consecutive launches at one shape give the same bits: no pass sums
+    in an order that depends on timing."""
+    x, dt, a, bm, cm, d, s0 = _ssd_case(dev, b, s, h, p, n, 11, init=True)
+    runs = [ssd_ops.ssd_apply(x, dt, a, bm, cm, d, chunk=chunk, init_state=s0,
+                              return_state=True) for _ in range(3)]
+    for y, state in runs[1:]:
+        assert torch.equal(y, runs[0][0]) and torch.equal(state, runs[0][1])
 
 
 def test_ssd_scan_handles_large_decay(dev):

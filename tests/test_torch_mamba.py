@@ -40,7 +40,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.ssd_scan.ops import ssd_apply
 from repro_torch.kernels.ssd_scan.ref import (_pairwise_diff, ssd_chunked_ref,
-                                              ssd_scan_ref)
+                                              ssd_passes_ref, ssd_scan_ref)
 from repro_torch.launch import serve
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import mamba2 as M
@@ -148,6 +148,46 @@ def test_chunked_form_matches_sequential_scan(b, s, h, p, n, chunk):
     y = ssd_chunked_ref(*t_(x, dt, a, bm, cm, d), chunk)[0]
     seq = ssd_scan_ref(*t_(*_fold(x, dt, a, bm, cm, d)))
     np.testing.assert_allclose(np_(y), np_(seq).reshape(b, h, s, p)
+                               .transpose(0, 2, 1, 3), **SEQ_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,init,big", [
+    (2, 128, 4, 32, 16, 32, False, False),   # several chunks
+    (2, 128, 4, 32, 16, 32, True, False),
+    (1, 96, 3, 16, 8, 96, False, False),     # a single chunk
+    (1, 96, 3, 16, 8, 96, True, False),
+    (2, 192, 2, 24, 20, 64, True, False),    # ragged widths
+    (1, 256, 2, 16, 12, 64, False, True),    # dt x 300, A x 4
+    (1, 256, 2, 16, 12, 64, True, True),
+])
+def test_chunk_passes_match_reference(b, s, h, p, n, chunk, init, big):
+    """The kernel's four passes written out (``ssd_passes_ref``): y and
+    the final state against the reference's ``ssd_chunked`` at 1e-5 (the
+    same algorithm in float32, sums in another order), and the decays of
+    hundreds per step (dt x 300, A x 4) stay finite."""
+    x, dt, a, bm, cm, d, s0 = _ssd_operands(b, s, h, p, n, 3 * s + chunk, init)
+    if big:
+        dt, a = dt * np.float32(300.0), a * np.float32(4.0)
+    ref_y, ref_state = ref_M.ssd_chunked(
+        *map(jnp.asarray, (x, dt, a, bm, cm, d)), chunk=chunk,
+        init_state=None if s0 is None else jnp.asarray(s0))
+    y, state = ssd_passes_ref(*t_(x, dt, a, bm, cm, d), chunk, *t_(s0))
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(state).all())
+    np.testing.assert_allclose(np_(y), np.asarray(ref_y), **SAME_TOL)
+    np.testing.assert_allclose(np_(state), np.asarray(ref_state), **SAME_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [(2, 128, 4, 32, 16, 32),
+                                             (1, 64, 2, 16, 8, 64),
+                                             (3, 40, 5, 7, 5, 8)])
+def test_chunk_passes_match_sequential_scan(b, s, h, p, n, chunk):
+    """The passes against the reference's sequential recurrence at 1e-4,
+    the reference's tolerance for its kernel against that oracle."""
+    x, dt, a, bm, cm, d, _ = _ssd_operands(b, s, h, p, n, 5 * s + chunk)
+    y = ssd_passes_ref(*t_(x, dt, a, bm, cm, d), chunk)[0]
+    seq = np.asarray(ref_ssd_scan_ref(*map(jnp.asarray,
+                                           _fold(x, dt, a, bm, cm, d))))
+    np.testing.assert_allclose(np_(y), seq.reshape(b, h, s, p)
                                .transpose(0, 2, 1, 3), **SEQ_TOL)
 
 

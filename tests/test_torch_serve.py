@@ -37,8 +37,10 @@ from repro.models import transformer as ref_T
 from repro.models import zoo as ref_zoo
 from repro_torch.configs import ARCHS, INPUT_SHAPES, get_arch
 from repro_torch.convert import params_from_numpy, params_to_numpy
-from repro_torch.kernels.swa_decode.ops import decode_attention, swa_decode
-from repro_torch.kernels.swa_decode.ref import swa_decode_ref
+from repro_torch.kernels.swa_decode.ops import (decode_attention, split_count,
+                                                swa_decode)
+from repro_torch.kernels.swa_decode.ref import (swa_decode_ref,
+                                                swa_decode_split_ref)
 from repro_torch.launch import serve
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import layers as L
@@ -132,6 +134,64 @@ def test_decode_ragged_cache_matches_reference(w, window, qpos):
     got = decode_attention(*(torch.from_numpy(x) for x in (q, k, v, pos)),
                            qpos, window=window, n_heads=4)
     np.testing.assert_allclose(np_(got).reshape(ref.shape), ref, **KERNEL_TOL)
+
+
+def _ring(w, qpos):
+    """pos_buf of a ring of W slots after positions 0..qpos: slot s holds
+    the latest position p <= qpos with p % W == s, or -1."""
+    latest = qpos - (qpos - np.arange(w)) % w
+    return np.where(latest >= 0, latest, -1).astype(np.int32)
+
+
+@pytest.mark.parametrize("w,window,qpos,nsplit", [
+    (97, None, 300, 1),         # one split: the whole ring
+    (97, None, 300, 5),         # 5 does not divide 97
+    (97, 64, 300, 7),           # a window: some splits hold no valid slot
+    (97, None, 40, 6),          # a ring filling: the last splits are empty
+    (10, None, 12, 4),          # the last split has no slot at all
+    (664, 512, 700, 20),        # gemma3's global ring at full width
+    (1, None, 0, 1),            # a single slot
+])
+def test_decode_split_matches_reference(w, window, qpos, nsplit):
+    """The kernel's split decomposition written out
+    (``swa_decode_split_ref``) against the reference's oracle at 2e-5."""
+    _, qg, k, v, _, _ = _decode_operands(w, 1, 4, 64, w + nsplit)
+    pos = _ring(w, qpos)
+    ref = np.asarray(ref_swa_ref(jnp.asarray(qg), jnp.asarray(k), jnp.asarray(v),
+                                 jnp.asarray(pos), jnp.int32(qpos), window=window))
+    t = [torch.from_numpy(x) for x in (qg, k, v, pos)]
+    got = np_(swa_decode_split_ref(*t, qpos, window=window, nsplit=nsplit))
+    np.testing.assert_allclose(got, ref, **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("nsplit", [1, 3, 8])
+def test_decode_split_without_valid_slots_is_zero(nsplit):
+    """No valid slot at all: the kernel's output is 0, as the reference's
+    Pallas kernel (interpret mode) gives, where the dense oracle would
+    average V over the -1e30 scores."""
+    _, qg, k, v, _, _ = _decode_operands(256, 1, 4, 64, nsplit)
+    pos = np.full(256, -1, np.int32)
+    tiled = np.asarray(ref_swa_tiled(*map(jnp.asarray, (qg, k, v, pos)),
+                                     jnp.int32(5), window=None, kv_blk=128,
+                                     interpret=True))
+    got = np_(swa_decode_split_ref(*(torch.from_numpy(x) for x in (qg, k, v, pos)),
+                                   5, window=None, nsplit=nsplit))
+    np.testing.assert_array_equal(tiled, np.zeros_like(tiled))
+    np.testing.assert_array_equal(got, tiled)
+
+
+@pytest.mark.parametrize("bh,w,n_sm,want", [
+    (4, 512, 132, 16),          # gemma3's serving step: 32 slots a split
+    (4, 664, 132, 21),          # the last split shorter
+    (4, 88, 132, 3),
+    (16, 32768, 132, 17),       # about two blocks per SM
+    (4, 33, 132, 2),
+    (4, 32, 132, 1),            # a small ring: one split
+    (1, 1, 132, 1),
+    (1, 1 << 20, 132, 64),      # at most 64 splits
+])
+def test_split_count(bh, w, n_sm, want):
+    assert split_count(bh, w, n_sm) == want
 
 
 # ----------------------------------------------------------------- layers
