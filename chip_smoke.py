@@ -42,7 +42,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    passes each), one prefill profiled; then teacher-forced decode (the
    recurrence) against
    ``forward`` over 512 tokens, and ``BatchedServer`` on 8 requests;
-8. print the kernel record, the card, and the last line
+8. drive the batched fleet solve: ``make_batch("rayleigh_fading", 64)``
+   (E = 64,000) and a ragged ``make_mixed_batch`` of five scenarios
+   (N_max = 1,000) through all five methods of ``solve_joint_batch``,
+   the kernel methods held to ``optimal`` / ``fused``, each instance to
+   its own solve and padded slots to 0; then ``make_batch(
+   "mega_fleet_100k", 8)`` (E = 800,000) and one ``metro_1m_users`` draw
+   (E = 1,000,000) through both kernel methods, every instance feasible,
+   timed beside the kernels' bound, the work their function needs
+   (``element_work``), and phase [1]'s count of the compiled loop;
+9. print the kernel record, the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero without a CUDA device and
@@ -75,6 +84,34 @@ TF32_OPS_PER_S = 495e12
 # 13, 60 bisection updates of 4, and 9 for P*
 FUSED_OPS = 18 + 50 * 38
 SELECTION_OPS = 61 * 13 + 60 * 4 + 9
+# Kernels 1-2's bound: the work their function needs (csrc/solve_common.cuh
+# as written), whatever code the compiler makes of it, in thread-level
+# instructions on the FP32/ALU pipes and on the special-function (MUFU)
+# pipe.  A multiply-add counts as one FFMA and a term that does not change
+# across steps once an element; loop control counts nothing.  Each
+# primitive's least cost, (FP32/ALU, MUFU):
+#   a correctly rounded division (div.rn.f32): a reciprocal estimate
+#     (1 MUFU.RCP), one Newton step (2 FFMA), the quotient, its residual
+#     and the correction (3);
+#   expm1f: the argument scaled and rounded to an integer j (2), the
+#     remainder x - j ln 2 against a two-part ln 2 (2), a degree-6
+#     polynomial on |r| <= ln 2 / 2 (6 FFMA, float32's 24 bits), 2^j
+#     (1 MUFU.EX2) and 2^j (expm1(r) + 1) - 1 (2);
+#   logf: the exponent and mantissa split (3 integer), a degree-8
+#     polynomial in the mantissa (8 FFMA) and e ln 2 + p (1), no MUFU.
+DIV, EXPM1, LOG = (5, 1), (12, 1), (12, 0)
+# an SM's 128 FP32 lanes issue one instruction each a clock (the published
+# 67 TFLOP/s counts an FFMA as two operations); its 16 MUFU lanes, 4 per
+# partition (NVIDIA's Hopper architecture white paper), an eighth of that.
+# Compares, selects, min and max are priced at the FP32 rate too, which
+# they cannot beat.
+FP32_INSTR_PER_S = FP32_OPS_PER_S / 2
+MUFU_PER_S = FP32_INSTR_PER_S * 16 / 128
+# the compiled code's count, a diagnostic beside the bound: an SM issues
+# at most 4 warp-instructions a clock (one per scheduler)
+ISSUE_PER_CLOCK = 4
+MUFU_LANES_PER_CLOCK = 16
+SOLVE_STEPS = {"fused_solve": 50, "selection_solve": 60}   # N_ALT, N_BISECT
 # quantised sum per element: a true division, floor, subtraction,
 # comparison, select, addition, max, min, two multiplies and an addition
 QUANT_OPS = 11
@@ -109,6 +146,14 @@ CNN_LEAVES = (72, 8, 1152, 16, 195216, 249, 2490, 10)
 BIT_MENU = (8, 16, 32)
 QUANT_SCHEMES = (("joint_bits", None), ("fixed_8", 8), ("fixed_4", 4))
 GRID_KERNELS = ("fused_solve", "selection_solve", "masked_aggregate")
+# the batched fleet solve: its five methods, the ragged mixed ensemble
+# (N_max 1,000 from dense_1k), the fused-kernel and kernel methods against
+# the plain methods that solve the same problem
+BATCH_METHODS = ("alternating", "fused", "optimal", "kernel", "fused_kernel")
+MIXED_SCENARIOS = ("paper_static", "hetero_bandwidth", "dense_1k",
+                   "bandwidth_starved", "sparse_energy_starved")
+KERNEL_METHODS = (("kernel", "selection_solve", "optimal"),
+                  ("fused_kernel", "fused_solve", "fused"))
 # a width that is not whole, as 32 sbits / S can give
 NOT_WHOLE = 7.9999995
 # loop against sweep under stochastic rounding: float-rounding differences
@@ -195,6 +240,165 @@ def dynamic_smem(source: Path) -> None:
             r'static_assert\(sizeof\(\w+\) == (\d+), "(\w+): dynamic shared memory"\)',
             source.read_text()):
         print(f"  {what}: {int(size):,} bytes dynamic shared memory a block")
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
+BRANCH = re.compile(r"\bBRA\s+(?:!?U?P\d,\s*)?0x([0-9a-f]+)")
+
+
+def parse_sass(text: str) -> dict:
+    """Each function's instructions in ``cuobjdump -sass`` output, as
+    (address, text), by mangled name."""
+    funcs, name = {}, None
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            funcs[name] = []
+        elif name and (m := SASS_LINE.search(line)):
+            funcs[name].append((int(m.group(1), 16), m.group(2).strip()))
+    return funcs
+
+
+def opcode(text: str) -> str:
+    words = text.split()
+    return words[1] if words[0].startswith("@") else words[0]
+
+
+def loop_step(instrs: list) -> dict:
+    """One step of the function's main loop on its shortest path.
+
+    The main loop is the backward branch whose body holds the most
+    exponentials (``MUFU.EX2``).  Through the body, every conditional
+    forward branch may be taken or not; the count is the shortest path
+    that still computes every exponential of the body: it skips the
+    divisions' slow-path calls (``FCHK``), the printed eq. (13)'s extra
+    division and the a = 0 shortcut.  A body unrolled U times (U
+    exponentials) gives per-step counts /U.  Every instruction on the
+    path counts once, predicated-off ones and the split multiply-adds of
+    a ``--fmad=false`` build too: it counts this build's issue slots, not
+    the work the function needs (``element_work``)."""
+    index = {addr: i for i, (addr, _) in enumerate(instrs)}
+
+    def ex2(lo, hi):
+        return sum("MUFU.EX2" in t for _, t in instrs[lo:hi + 1])
+
+    loops = []
+    for i, (addr, text) in enumerate(instrs):
+        m = BRANCH.search(text)
+        if m and int(m.group(1), 16) < addr:
+            head = index[int(m.group(1), 16)]
+            loops.append((ex2(head, i), i - head, head, i))
+    _, _, head, end = max(loops)
+    need = ex2(head, end)
+    memo = {}
+
+    def walk(i, seen):
+        """(instructions, MUFU) from i to the loop's end having computed
+        ``seen`` exponentials so far, or None."""
+        key = (i, seen)
+        if key in memo:
+            return memo[key]
+        text = instrs[i][1]
+        seen += "MUFU.EX2" in text
+        if i == end:
+            best = (0, 0) if seen == need else None
+        else:
+            nexts = [i + 1]
+            m = BRANCH.search(text)
+            if m:
+                target = index[int(m.group(1), 16)]
+                nexts = [target] if not text.startswith("@") else [i + 1, target]
+            paths = [r for r in (walk(j, seen) for j in nexts) if r is not None]
+            best = min(paths) if paths else None
+        memo[key] = None if best is None else (
+            best[0] + 1, best[1] + opcode(text).startswith("MUFU"))
+        return memo[key]
+
+    count, mufu = walk(head, 0)
+    return dict(instructions=count / need, mufu=mufu / need, unroll=need,
+                body=end - head + 1)
+
+
+def solve_sass(torch, lib: Path) -> dict:
+    """Kernels 1-2's loop steps, counted from the built library."""
+    from repro_torch.kernels import cuda_lib
+    tool = Path(cuda_lib._nvcc()).parent / "cuobjdump"
+    funcs = parse_sass(subprocess.run(
+        [str(tool), "-sass", str(lib)], capture_output=True, text=True,
+        timeout=300, check=True).stdout)
+    out = dict(sms=sm_count(torch), clock_hz=sm_clock_hz())
+    for name in ("fused_solve", "selection_solve"):
+        (instrs,) = [v for k, v in funcs.items() if f"{name}_kernel" in k]
+        out[name] = step = loop_step(instrs)
+        print(f"  {name}_kernel SASS: {len(instrs)} instructions; its loop "
+              f"body {step['body']} of them, {step['unroll']} step(s) an "
+              f"iteration; one step on its shortest path "
+              f"{step['instructions']:.2f} instructions, "
+              f"{step['mufu']:.2f} of them MUFU")
+    print(f"  priced at {ISSUE_PER_CLOCK} warp-instructions and "
+          f"{MUFU_LANES_PER_CLOCK} MUFU lanes a clock on each of "
+          f"{out['sms']} SMs at {out['clock_hz'] / 1e6:.0f} MHz")
+    for name, steps in SOLVE_STEPS.items():
+        instr, mufu = element_work(name, steps)
+        print(f"  {name}: the work its function needs, {instr} FP32/ALU and "
+              f"{mufu} MUFU instructions an element ({steps} steps; "
+              f"element_work)")
+    return out
+
+
+def element_work(name: str, steps: int) -> tuple[int, int]:
+    """(FP32/ALU, MUFU) instructions one element of kernel 1 or 2 needs.
+
+    fused_solve: B tau and pg > 0 once, fused_init's a^0 (T(P^max) and
+    eq. 13: 12 operations, 4 divisions, a log), then each of ``steps``
+    steps of fused_step: P^min (3 operations and a select, 2 divisions,
+    expm1), its clamps and gate (3), T(P) (3, 2 divisions, a log), lambda
+    (5), the eq.-10 test (4), eq. 13 (9, 2 divisions) and the gated
+    update (1).  selection_solve: B tau once, ``steps`` + 1 feasibility
+    tests (P^min and F(a): 8 operations, 2 divisions, expm1), ``steps``
+    bisection updates (the midpoint and two selects: 4), and P* (6, 2
+    divisions, expm1)."""
+    if name == "fused_solve":
+        ops, div, expm1, log = (14 + 29 * steps, 4 + 6 * steps, steps,
+                                1 + steps)
+    else:
+        ops, div, expm1, log = (1 + 8 * (steps + 1) + 4 * steps + 6,
+                                2 * (steps + 2), steps + 2, 0)
+    return (ops + div * DIV[0] + expm1 * EXPM1[0] + log * LOG[0],
+            div * DIV[1] + expm1 * EXPM1[1] + log * LOG[1])
+
+
+def solve_bound_ms(name: str, n: int) -> tuple[float, str]:
+    """Kernel 1 or 2's least time for ``n`` elements: the work its function
+    needs at the FP32/ALU pipes' rate or at the MUFU pipe's, or its bytes
+    (4 inputs read, 2 outputs written) at the memory's rate, whichever
+    is larger; and which of the three it is."""
+    instr, mufu = element_work(name, SOLVE_STEPS[name])
+    t, by = max((n * instr / FP32_INSTR_PER_S, "FP32 issue"),
+                (n * mufu / MUFU_PER_S, "MUFU"),
+                (6 * 4 * n / HBM_BYTES_PER_S, "bytes"))
+    return t * 1e3, by
+
+
+def sass_issue_ms(sass: dict, name: str, n: int) -> float:
+    """The compiled loop's steps (phase [1]'s SASS) at the SM's issue rate
+    and MUFU rate: what this build would take if it issued every cycle, a
+    diagnostic beside ``solve_bound_ms``, not a bound on the function."""
+    step, steps = sass[name], SOLVE_STEPS[name]
+    warps = math.ceil(n / 32) * steps
+    per_sm_clock = sass["sms"] * sass["clock_hz"]
+    t_issue = warps * step["instructions"] / (ISSUE_PER_CLOCK * per_sm_clock)
+    t_mufu = warps * step["mufu"] * 32 / (MUFU_LANES_PER_CLOCK * per_sm_clock)
+    return max(t_issue, t_mufu) * 1e3
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -309,7 +513,7 @@ def check_quantized(torch, dev) -> float:
     return worst
 
 
-def time_kernels(torch, dev) -> dict:
+def time_kernels(torch, dev, sass: dict) -> dict:
     """Kernel, plain and library times at the slice's shapes."""
     from repro_torch.kernels.masked_aggregate import ops as agg_ops
     from repro_torch.kernels.masked_aggregate import ref as agg_ref
@@ -326,12 +530,18 @@ def time_kernels(torch, dev) -> dict:
             reps = 200 if n == 100 else 20
             ms = cuda_ms(torch, lambda: kern(*els, **kw), reps)
             plain_ms = cuda_ms(torch, lambda: plain(*els, **kw), max(reps // 20, 3))
-            b_ms, b_by = bound_ms(io_bytes, ops_per * n)
+            old_ms, old_by = bound_ms(io_bytes, ops_per * n)
+            b_ms, b_by = solve_bound_ms(name, n)
             print(f"  {name:16s} E={n:>9,d}: kernel {ms:.6f} ms, plain "
-                  f"{plain_ms:.6f} ms, bound {b_ms:.9f} ms ({b_by})")
+                  f"{plain_ms:.6f} ms, bound {b_ms:.9f} ms ({b_by}; the "
+                  f"kernel at {b_ms / ms:.3f} of it); each operation one "
+                  f"float32 operation: {old_ms:.9f} ms ({old_by}); the "
+                  f"compiled loop at the issue rate "
+                  f"{sass_issue_ms(sass, name, n):.9f} ms")
             if n == 100:            # the slice's shape: one fleet of N = 100
                 rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=None)
+                                 bound_by="bytes" if b_by == "bytes"
+                                 else "operations", library_ms=None)
     # one round's eq.-4 sums: every CNN leaf at T = 16 trajectories, N = 100
     gen = torch.Generator(device=dev).manual_seed(1)
     gs = [torch.randn(16, 100, d, device=dev, generator=gen) for d in CNN_LEAVES]
@@ -376,6 +586,162 @@ def time_kernels(torch, dev) -> dict:
     rec["quantized_masked_aggregate"] = dict(
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
     return rec
+
+
+# ------------------------------------------------------ batched fleet solve
+
+def solve_err(got, ref) -> float:
+    """The largest difference of two solutions in the form the solver
+    tolerance takes (atol = rtol on P*): max |da|, |dP| / (1 + |P|) and
+    |d objective|.  Two runs of the fixed point that stop at different
+    steps differ by up to about 2e-5 in P* near P^max, since P^min
+    magnifies a's last moves."""
+    return max(float((got.a - ref.a).abs().max()),
+               float(((got.power - ref.power).abs()
+                      / (1.0 + ref.power.abs())).max()),
+               float((got.objective - ref.objective).abs().max()))
+
+def check_batch_solution(torch, label, batch, sols, problems, singles) -> None:
+    """One ensemble's five solutions: the kernel methods against the
+    plain methods that solve the same problem, padded slots 0, and each
+    instance against its own solve and within the constraints."""
+    for kern, _, plain in KERNEL_METHODS:
+        err = solve_err(sols[kern], sols[plain])
+        print(f"  {label}: max|{kern} - {plain}| = {err:.3e} (tol {SOLVE_TOL:g})")
+        check(err <= SOLVE_TOL, f"{label}: {kern} differs from {plain} by {err}")
+    pad = ~batch.mask
+    for m, sol in sols.items():
+        check(not bool(sol.a[pad].any()) and not bool(sol.power[pad].any()),
+              f"{label}/{m}: a padded slot is not 0")
+        check(bool(torch.isfinite(sol.a).all() and torch.isfinite(sol.power).all()),
+              f"{label}/{m}: non-finite solution")
+        err, steps = 0.0, 0
+        for b, (problem, one) in enumerate(zip(problems, singles[m])):
+            inst = sol.instance(b)
+            err = max(err, solve_err(inst, one))
+            # the fused method's one loop runs until its slowest instance
+            # stops: its shared count is at least each instance's own
+            steps = max(steps, one.n_iters - inst.n_iters if m == "fused"
+                        else abs(inst.n_iters - one.n_iters))
+            check(inst.converged == one.converged,
+                  f"{label}/{m}: instance {b} converged differs")
+            check(bool(problem.constraints_satisfied(inst.a, inst.power,
+                                                     rtol=1e-3).all()),
+                  f"{label}/{m}: instance {b} infeasible")
+        print(f"  {label}/{m}: max|batch - per-instance solve| = {err:.3e}, "
+              f"n_iters within {steps}, every instance feasible")
+        check(err <= SOLVE_TOL and steps <= 1,
+              f"{label}/{m}: batch differs from its per-instance solves")
+
+
+def run_batched(torch, dev) -> dict:
+    """The batched fleet solve, with every launch count zeroed just before
+    it: two ensembles through all five methods of ``solve_joint_batch``,
+    then the mega-fleet batch and a metro draw through the kernel
+    methods.  Returns the launches and the four batches."""
+    from repro_torch.core.alternating import solve_joint, solve_joint_fused
+    from repro_torch.core.batch import solve_joint_batch
+    from repro_torch.core.optimal import solve_joint_optimal
+    from repro_torch.core.scenarios import make_batch, make_mixed_batch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.selection_solve.ops import (
+        solve_joint_fused_kernel, solve_joint_kernel)
+    single = dict(alternating=solve_joint, fused=solve_joint_fused,
+                  optimal=solve_joint_optimal, kernel=solve_joint_kernel,
+                  fused_kernel=solve_joint_fused_kernel)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    ensembles = [("rayleigh_fading x 64",
+                  make_batch("rayleigh_fading", 64, seed=0, device=dev)),
+                 ("mixed x 5", make_mixed_batch(MIXED_SCENARIOS, seed=0,
+                                                device=dev))]
+    results = []
+    for label, batch in ensembles:
+        sols = {}
+        for m in BATCH_METHODS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sols[m] = solve_joint_batch(batch, method=m)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            print(f"  {label} (B={batch.batch_size}, N_max={batch.n_max}, "
+                  f"E={sols[m].a.numel():,}) {m:13s}: {dt * 1e3:9.3f} ms, "
+                  f"objective mean {float(sols[m].objective.mean()):.6f}, "
+                  f"n_iters {sorted(set(sols[m].n_iters.tolist()))}")
+        results.append((label, batch, sols))
+    mega = [("mega_fleet_100k x 8", make_batch("mega_fleet_100k", 8, seed=0,
+                                                device=dev)),
+            ("metro_1m_users x 1", make_batch("metro_1m_users", 1, seed=0,
+                                               device=dev))]
+    mega_sols = [{m: solve_joint_batch(batch, method=m)
+                  for m, _, _ in KERNEL_METHODS} for _, batch in mega]
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    print(f"  launches on the batched path: {launches}")
+    for _, name, _ in KERNEL_METHODS:
+        check(launches[name] == len(ensembles) + len(mega),
+              f"kernel {name} launched {launches[name]} times on the batched "
+              f"path, not once per batch ({len(ensembles) + len(mega)})")
+    for label, batch, sols in results:
+        problems = batch.unstack()
+        singles = {m: [single[m](p) for p in problems] for m in BATCH_METHODS}
+        check_batch_solution(torch, label, batch, sols, problems, singles)
+    for (label, batch), sols in zip(mega, mega_sols):
+        for m, name, plain in KERNEL_METHODS:
+            sol = sols[m]
+            err = solve_err(sol, solve_joint_batch(batch, method=plain))
+            feasible = all(bool(p.constraints_satisfied(
+                sol.instance(b).a, sol.instance(b).power, rtol=1e-3).all())
+                for b, p in enumerate(batch.unstack()))
+            print(f"  {label} {m}: objective mean "
+                  f"{float(sol.objective.mean()):.6f}, E[participants] "
+                  f"{float(sol.a.sum()) / batch.batch_size:.1f} per instance, "
+                  f"max|{m} - {plain}| = {err:.3e}, feasible={feasible}")
+            check(feasible, f"{label}/{m}: an instance is infeasible")
+            check(err <= SOLVE_TOL, f"{label}/{m}: differs from {plain} by {err}")
+    return dict(launches=launches, batches=[(label, batch) for label, batch, _
+                                            in results] + mega)
+
+
+def time_batched(torch, dev, batches, sass) -> None:
+    """Kernels 1-2 at the batched shapes (CUDA events): each kernel alone
+    on the batch's flattened elements, beside its bound, the compiled
+    loop's issue time and its plain version, and the whole
+    ``solve_joint_batch`` method; and the host's ``make_batch`` alone."""
+    from repro_torch.core.batch import batch_elements, solve_joint_batch
+    from repro_torch.core.scenarios import make_batch
+    from repro_torch.kernels.selection_solve import ops, ref
+    kernels = {"selection_solve": (ops.selection_solve, ref.selection_solve_ref),
+               "fused_solve": (ops.fused_solve, ref.fused_solve_ref)}
+    for label, batch in batches:
+        el = batch_elements(batch)
+        flat = [x.reshape(-1).contiguous() for x in el[:4]]
+        n = flat[0].numel()
+        kw = dict(s_bits=batch.problem.grad_size_bits,
+                  tau=batch.problem.tau_th, p_max=batch.problem.p_max)
+        for method, name, _ in KERNEL_METHODS:
+            kern, plain = kernels[name]
+            ms = cuda_ms(torch, lambda: kern(*flat, **kw), 20)
+            plain_ms = cuda_ms(torch, lambda: plain(*flat, **kw), 3)
+            method_ms = cuda_ms(torch, lambda: solve_joint_batch(
+                batch, method=method), 5)
+            b_ms, b_by = solve_bound_ms(name, n)
+            print(f"  {label} {name:16s} E={n:>9,d}: kernel {ms:.6f} ms, "
+                  f"bound {b_ms:.6f} ms ({b_by}; the kernel at "
+                  f"{b_ms / ms:.3f} of it), the compiled loop at the issue "
+                  f"rate {sass_issue_ms(sass, name, n):.6f} ms, plain "
+                  f"{plain_ms:.6f} ms, solve_joint_batch(method={method!r}) "
+                  f"{method_ms:.6f} ms")
+    for name, count in (("mega_fleet_100k", 8), ("metro_1m_users", 1)):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            make_batch(name, count, seed=0, device=dev)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f"  host: make_batch({name!r}, {count}) draws, stacks and "
+              f"copies in {', '.join(f'{t:.1f}' for t in times)} ms")
 
 
 def time_round_parts(torch, dev) -> None:
@@ -1350,6 +1716,7 @@ def main() -> int:
             print("  " + (re.sub(r"ILi(\d+)ELi(\d+)E", r"<\1, \2>", name.group(0))
                           if name else line.strip()))
     dynamic_smem(cuda_lib.CSRC / "ssd_scan.cu")
+    sass = solve_sass(torch, lib)
 
     print("[2] kernels against their plain versions" + at(), flush=True)
     errs = check_solvers(torch, dev)
@@ -1360,7 +1727,7 @@ def main() -> int:
     errs["ssd_scan"] = check_ssd(torch, dev, *mamba2)
 
     print("[3] times (CUDA events)" + at(), flush=True)
-    rec = time_kernels(torch, dev)
+    rec = time_kernels(torch, dev, sass)
     rec["swa_decode"] = time_decode(torch, dev)
     rec["ssd_scan"], ssd_ms = time_ssd(torch, dev)
     time_round_parts(torch, dev)
@@ -1395,6 +1762,11 @@ def main() -> int:
           f"{ssd_s:.6f} s; swa_decode over the gen-{SERVE_GENS[-1]} serving run "
           f"{served['run_s']:.6f} s")
 
+    print("[8] the batched fleet solve: ensembles, mega fleets" + at(),
+          flush=True)
+    batched = run_batched(torch, dev)
+    time_batched(torch, dev, batched.pop("batches"), sass)
+
     sources = {"fused_solve": ("src/repro_torch/csrc/selection_solve.cu",
                                "src/repro/kernels/selection_solve/kernel.py:143"),
                "selection_solve": ("src/repro_torch/csrc/selection_solve.cu",
@@ -1412,7 +1784,7 @@ def main() -> int:
                     launches=out["launches"][name], max_abs_err=errs[name],
                     **rec[name])
                for name, (src, rep) in sources.items()]
-    print(f"[8] done in {time.perf_counter() - t_start:.1f} s; peak device "
+    print(f"[9] done in {time.perf_counter() - t_start:.1f} s; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(card_line)

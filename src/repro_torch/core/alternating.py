@@ -204,9 +204,11 @@ def problem_elements(problem: WirelessFLProblem,
 
 def _fused_step(a: torch.Tensor, el: FleetElements, *, s_bits: float,
                 tau: float, p_max: float, power_solver: str,
-                faithful_eq13_typo: bool, lam0: float = 1e-3):
+                faithful_eq13_typo: bool, lam0: float = 1e-3,
+                batch_dims: int = 0):
     """One fused alternation on raw elements: power + gate + eq. 13.
-    Returns ``(a_new, power, inner_iters)``."""
+    Returns ``(a_new, power, inner_iters)``; ``batch_dims`` as in
+    ``dinkelbach_power_elements``."""
     if el.sbits is not None:
         s_bits = el.sbits
     if power_solver == "analytic":
@@ -215,7 +217,8 @@ def _fused_step(a: torch.Tensor, el: FleetElements, *, s_bits: float,
         inner = 0
     elif power_solver == "dinkelbach":
         p, lam, inner, feasible = dinkelbach_power_elements(
-            a, el.pg, el.bw, s_bits=s_bits, tau=tau, p_max=p_max, lam0=lam0)
+            a, el.pg, el.bw, s_bits=s_bits, tau=tau, p_max=p_max, lam0=lam0,
+            batch_dims=batch_dims)
     else:
         raise ValueError(f"unknown power_solver {power_solver!r}")
     ok = energy_gate_elements(a, lam, el.emax, el.ec) & feasible

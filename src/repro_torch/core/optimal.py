@@ -11,34 +11,49 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.alternating import JointSolution, _solution_shape
-from repro_torch.core.problem import WirelessFLProblem, _bcast_like
+from repro_torch.core.alternating import (FleetElements, JointSolution,
+                                          problem_elements)
+from repro_torch.core.power import element_p_min
+from repro_torch.core.problem import WirelessFLProblem
 
 
-def _feasible(problem: WirelessFLProblem, a: torch.Tensor) -> torch.Tensor:
-    """F(a) elementwise; a = 0 is always feasible."""
-    p_min = torch.clamp(problem.p_min(a), min=0.0)
-    rank = max(a.ndim, p_min.ndim)
-    av = _bcast_like(a, rank)
-    ec = _bcast_like(problem.compute_energy(), rank)
-    emax = _bcast_like(problem.energy_budget_j, rank)
-    power_ok = p_min <= problem.p_max * (1 + 1e-9)
-    energy_ok = problem.tau_th * p_min + av * ec <= emax * (1 + 1e-9)
-    return (power_ok & energy_ok) | (av <= 0)
+N_BISECT = 60
 
 
-def solve_joint_optimal(problem: WirelessFLProblem, *, n_bisect: int = 60,
-                        per_round: bool = True) -> JointSolution:
-    """Exact per-element optimum of (7) by ``n_bisect`` bisection steps."""
-    shape = _solution_shape(problem, per_round)
-    lo = torch.zeros(shape, device=problem.device)
-    hi = torch.ones(shape, device=problem.device)
-    feas1 = _feasible(problem, hi)
+def optimal_elements(el: FleetElements, *, s_bits: float, tau: float,
+                     p_max: float, n_bisect: int = N_BISECT):
+    """The exact per-element optimum on raw elements of any one shape:
+    a* = 1 where F(1) holds, else ``n_bisect`` bisection steps on F, and
+    P* = clip(P^min(a*), 0, P^max); returns ``(a*, P*)``."""
+    s = s_bits if el.sbits is None else el.sbits
+
+    def p_min(a):
+        return torch.clamp(element_p_min(a, el.pg, el.bw, s_bits=s, tau=tau),
+                           min=0.0)
+
+    def feasible(a):
+        """F(a); a = 0 is always feasible."""
+        pm = p_min(a)
+        power_ok = pm <= p_max * (1 + 1e-9)
+        energy_ok = tau * pm + a * el.ec <= el.emax * (1 + 1e-9)
+        return (power_ok & energy_ok) | (a <= 0)
+
+    lo, hi = torch.zeros_like(el.pg), torch.ones_like(el.pg)
+    feas1 = feasible(hi)
     for _ in range(n_bisect):
         mid = 0.5 * (lo + hi)
-        ok = _feasible(problem, mid)
+        ok = feasible(mid)
         lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
     a = torch.where(feas1, 1.0, lo)
-    power = torch.clamp(problem.p_min(a), 0.0, problem.p_max)
+    return a, torch.clamp(p_min(a), max=p_max)
+
+
+def solve_joint_optimal(problem: WirelessFLProblem, *, n_bisect: int = N_BISECT,
+                        per_round: bool = True) -> JointSolution:
+    """Exact per-element optimum of (7) by ``n_bisect`` bisection steps."""
+    a, power = optimal_elements(problem_elements(problem, per_round),
+                                s_bits=problem.grad_size_bits,
+                                tau=problem.tau_th, p_max=problem.p_max,
+                                n_bisect=n_bisect)
     return JointSolution(a=a, power=power, objective=problem.objective(a),
                          n_iters=n_bisect, converged=True)

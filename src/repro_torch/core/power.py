@@ -71,7 +71,8 @@ def analytic_power_elements(a, pg, bw, *, s_bits, tau: float, p_max: float
 
 def dinkelbach_power_elements(a, pg, bw, *, s_bits, tau: float, p_max: float,
                               lam0: float | torch.Tensor = 1e-3,
-                              eps: float = 1e-6, max_iters: int = 64
+                              eps: float = 1e-6, max_iters: int = 64,
+                              batch_dims: int = 0
                               ) -> tuple[torch.Tensor, torch.Tensor, int,
                                          torch.Tensor]:
     """Vectorised Algorithm 1 over raw element tensors.
@@ -79,6 +80,11 @@ def dinkelbach_power_elements(a, pg, bw, *, s_bits, tau: float, p_max: float,
     Returns ``(power, lam, n_iters, feasible)``.  The loop stops when
     every element's lambda moved less than ``eps`` relative to itself, or
     after ``max_iters`` steps; converged elements keep their values.
+
+    ``batch_dims`` leading axes index independent problems: ``n_iters``
+    is then an int tensor of their shape, each problem's count of the
+    steps it took before all of its own elements converged, which is
+    the count its own solve would report.
     """
     a_safe = torch.clamp(a, min=_A_FLOOR)
     p_min = torch.clamp(element_p_min(a, pg, bw, s_bits=s_bits, tau=tau),
@@ -102,7 +108,11 @@ def dinkelbach_power_elements(a, pg, bw, *, s_bits, tau: float, p_max: float,
     lam = lam_of(p)
     done = torch.zeros(a.shape, dtype=torch.bool, device=a.device)
     it = 0
+    counts = torch.zeros(a.shape[:batch_dims], dtype=torch.int64,
+                         device=a.device) if batch_dims else None
     while it < max_iters and not bool(torch.all(done)):
+        if batch_dims:
+            counts += ~done.flatten(batch_dims).all(dim=-1)
         p_new = p_star(lam)
         lam_new = lam_of(p_new)
         done_new = torch.abs(lam_new - lam) <= eps * torch.clamp(
@@ -111,7 +121,7 @@ def dinkelbach_power_elements(a, pg, bw, *, s_bits, tau: float, p_max: float,
         lam = torch.where(done, lam, lam_new)
         done = done | done_new
         it += 1
-    return p, lam, it, feasible
+    return p, lam, counts if batch_dims else it, feasible
 
 
 def energy_gate_elements(a, lam, emax, ec) -> torch.Tensor:

@@ -37,6 +37,17 @@ _TENSOR_FIELDS = ("distance_m", "bandwidth_hz", "energy_budget_j",
                   "dataset_size", "cycles_per_sample", "cpu_hz", "weights",
                   "fading", "interference", "bits")
 
+# neutral per-device fills: a zero energy budget makes every solver
+# self-deselect the slot (a* = 0, P* = 0) while distance and bandwidth 1
+# keep every closed form finite, and weight 0 removes it from the
+# objective.  ``core.batch`` pads ragged fleets with them.
+NEUTRAL_FILLS = dict(distance_m=1.0, bandwidth_hz=1.0, energy_budget_j=0.0,
+                     dataset_size=1.0, cycles_per_sample=1.0, cpu_hz=1.0,
+                     weights=0.0)
+_FADING_FILL = 1.0
+_INTERFERENCE_FILL = 0.0
+_BITS_FILL = 32.0
+
 
 def div(num, den) -> torch.Tensor:
     """The correctly rounded quotient ``num / den`` where either side may

@@ -18,8 +18,10 @@ powers and the aggregation weights alpha_i of the server update (eq. 4):
 Random draws come from the ``torch.Generator`` the caller passes (the
 reference's ``jax.random`` streams cannot be reproduced; callers that need
 the reference's draws pass its masks to the FL engines).  The
-channel-aware schedulers (greedy, Lyapunov), the batched methods and
-warm starts come with later slices.
+probabilistic scheduler's batched methods (``solve_batch``,
+``precompute_batch``, ``sample_batch``) take a ``core.batch.ProblemBatch``.
+The channel-aware schedulers (greedy, Lyapunov) and warm starts come with
+later slices.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core.alternating import JointSolution, solve_joint, solve_joint_fused
+from repro_torch.core.batch import BatchSolution, ProblemBatch, solve_joint_batch
 from repro_torch.core.optimal import solve_joint_optimal
 from repro_torch.core.problem import WirelessFLProblem
 
@@ -115,6 +118,42 @@ class ProbabilisticScheduler:
             alpha = alpha / torch.clamp(a, min=1e-6)
         return ParticipationDraw(mask=bernoulli_mask(generator, a), power=p,
                                  agg_weights=alpha, probs=a)
+
+    # ---- batched (multi-scenario) path ---------------------------------
+    def solve_batch(self, batch: ProblemBatch, **kw) -> BatchSolution:
+        """One solve for a whole ProblemBatch of scenarios.
+
+        Keyword overrides win over the scheduler's configuration, so
+        ``solve_batch(batch, method="kernel")`` reaches the kernel.  As
+        with ``solve()``, the Algorithm-2 knobs only apply to the methods
+        that have them.
+        """
+        kw.setdefault("method", self.solver
+                      if self.solver in ("optimal", "fused") else "alternating")
+        if kw["method"] == "alternating":
+            kw.setdefault("power_solver", self.power_solver)
+        if kw["method"] in ("alternating", "fused", "fused_kernel"):
+            kw.setdefault("faithful_eq13_typo", self.faithful_eq13_typo)
+        if kw["method"] == "fused":
+            kw.setdefault("bit_menu", self.bit_menu)
+        return solve_joint_batch(batch, **kw)
+
+    def precompute_batch(self, batch: ProblemBatch, **kw) -> SchedulerState:
+        """Batched ``precompute``: every tensor gains a leading batch axis.
+        Padded device slots have a = 0 and aggregation weight 0."""
+        sol = self.solve_batch(batch, **kw)
+        masked_sizes = batch.problem.dataset_size * batch.mask
+        alpha = masked_sizes / masked_sizes.sum(dim=1, keepdim=True)
+        return SchedulerState(a=sol.a, power=sol.power, agg_weights=alpha)
+
+    def sample_batch(self, state: SchedulerState, generator: torch.Generator,
+                     k: int = 0) -> ParticipationDraw:
+        """Independent participation draws for every instance, ``[B, N]``:
+        instance by instance from ``generator``, as ``sample`` draws."""
+        draws = [self.sample(SchedulerState(*(x[b] for x in state)),
+                             generator, k)
+                 for b in range(state.a.shape[0])]
+        return ParticipationDraw(*(torch.stack(x) for x in zip(*draws)))
 
 
 def _top_m_binary(score: torch.Tensor, m) -> torch.Tensor:

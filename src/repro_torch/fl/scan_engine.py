@@ -20,8 +20,9 @@ A plan with a ``bits`` table trains with a quantised uplink: each round
 every client's gradient is stochastically rounded to its width and
 summed by the ``quantized_masked_aggregate`` wrapper, with the noise of
 ``run_fl``'s stream (``engine.quantizer_generator``, seeded per
-trajectory seed and round).  Upload drops (``drops``) and
-``plans_from_batch`` come with later slices.
+trajectory seed and round).  ``plans_from_batch`` plans a registry
+ensemble from one batched solve.  Upload drops (``drops``) come with a
+later slice.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from typing import Any, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.batch import ProblemBatch
 from repro_torch.core.problem import WirelessFLProblem, div
 from repro_torch.core.schedulers import (
     DeterministicScheduler,
@@ -230,6 +232,38 @@ def plan_trajectory(problem: WirelessFLProblem,
             else torch.from_numpy(np.array(bits, np.float32)),
             k_rounds, "bit-width table"),
     )
+
+
+def plans_from_batch(batch: ProblemBatch,
+                     scheduler: ProbabilisticScheduler,
+                     parts_list: Sequence[Sequence[np.ndarray]],
+                     configs: Sequence[FLConfig],
+                     dataset_ids: Optional[Sequence[int]] = None,
+                     masks: Optional[Sequence[np.ndarray]] = None,
+                     **solve_kw) -> list[TrajectoryPlan]:
+    """One batched solve (``precompute_batch``), then one plan per instance.
+
+    All instances must share a fleet size: a ragged batch pads device
+    slots, and the uniform strategy's draws over the padded axis would
+    change.  ``masks`` (one ``[K, N]`` array per instance) replaces the
+    draws from each ``config.seed``, as in ``plan_trajectory``.
+    """
+    sizes = batch.fleet_sizes.cpu().numpy()
+    if not (sizes == sizes[0]).all():
+        raise ValueError(
+            f"plans_from_batch needs a uniform fleet size, got {sizes}; "
+            "stack equal-N instances (no padding) for the FL sweep")
+    state = scheduler.precompute_batch(batch, **solve_kw)
+    problems = batch.unstack()
+    if dataset_ids is None:
+        dataset_ids = range(len(problems))
+    if masks is None:
+        masks = [None] * len(problems)
+    return [plan_trajectory(problem, scheduler, parts, cfg,
+                            state=SchedulerState(*(x[i] for x in state)),
+                            dataset_id=int(ds), masks=m)
+            for i, (problem, parts, cfg, ds, m) in enumerate(
+                zip(problems, parts_list, configs, dataset_ids, masks))]
 
 
 def stack_plans(plans: Sequence[TrajectoryPlan]) -> TrajectoryPlan:

@@ -8,7 +8,11 @@ on the current stream, or raise.
 ``solve_joint_fused_kernel`` (drop-in for ``core.alternating.solve_joint``
 and ``solve_joint_fused``) and ``solve_joint_kernel`` (drop-in for
 ``core.optimal.solve_joint_optimal``) take one problem and return a
-``JointSolution``.  The ``*_batch`` variants come with ``core/batch.py``.
+``JointSolution``.  The ``*_batch`` variants take a ``core.batch.ProblemBatch``
+and return a ``BatchSolution``: problem (7) is separable per (instance,
+device, round), so a whole batch is one launch over its flattened
+``[B * N_max (* K)]`` elements.  Padded slots go through the kernel and
+deselect themselves (a zero energy budget gives a* = 0).
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.alternating import JointSolution
+from repro_torch.core.batch import (BatchSolution, ProblemBatch, batch_elements,
+                                    fixed_steps_solution)
 from repro_torch.core.problem import WirelessFLProblem
 from repro_torch.kernels.cuda_lib import LAUNCHES, check_operands, launch
 from repro_torch.kernels.selection_solve.ref import (N_ALT, N_BISECT,
@@ -60,14 +66,18 @@ def selection_solve(pg, bw, emax, ec, *, s_bits: float, tau: float,
     return a, p
 
 
-def _solve_elements(problem: WirelessFLProblem, solve, **kw):
-    """Run ``solve`` over every element of the problem's path gain,
-    flattened, and return ``(a*, P*)`` in the path gain's shape."""
+def _refuse_bits(problem: WirelessFLProblem) -> None:
     if problem.bits is not None:
         raise ValueError(
             "the kernel solvers take the problem's single payload "
             "grad_size_bits; a bits leaf needs solve_joint_fused "
             "(or solve_joint / solve_joint_optimal)")
+
+
+def _solve_elements(problem: WirelessFLProblem, solve, **kw):
+    """Run ``solve`` over every element of the problem's path gain,
+    flattened, and return ``(a*, P*)`` in the path gain's shape."""
+    _refuse_bits(problem)
     pg = problem.path_gain()
 
     def flat(x):
@@ -97,3 +107,30 @@ def solve_joint_fused_kernel(problem: WirelessFLProblem, n_iters: int = N_ALT,
                            faithful_eq13_typo=faithful_eq13_typo)
     return JointSolution(a=a, power=p, objective=problem.objective(a),
                          n_iters=n_iters, converged=True)
+
+
+def _solve_batch(batch: ProblemBatch, solve, steps: int,
+                 **kw) -> BatchSolution:
+    """One launch of ``solve`` over the batch's flattened element set."""
+    _refuse_bits(batch.problem)
+    el = batch_elements(batch)
+    shape = el.pg.shape
+    ops = [x.reshape(-1).contiguous() for x in (el.pg, el.bw, el.emax, el.ec)]
+    a, p = solve(*ops, s_bits=batch.problem.grad_size_bits,
+                 tau=batch.problem.tau_th, p_max=batch.problem.p_max, **kw)
+    return fixed_steps_solution(batch, a.reshape(shape), p.reshape(shape), steps)
+
+
+def solve_joint_kernel_batch(batch: ProblemBatch) -> BatchSolution:
+    """``core.batch.solve_joint_batch(method="kernel")``: the exact
+    per-element optimum of every instance, one selection_solve launch."""
+    return _solve_batch(batch, selection_solve, N_BISECT)
+
+
+def solve_joint_fused_kernel_batch(batch: ProblemBatch, n_iters: int = N_ALT,
+                                   faithful_eq13_typo: bool = False
+                                   ) -> BatchSolution:
+    """``core.batch.solve_joint_batch(method="fused_kernel")``: Algorithm 2's
+    fused fixed point on every instance, one fused_solve launch."""
+    return _solve_batch(batch, fused_solve, n_iters, n_iters=n_iters,
+                        faithful_eq13_typo=faithful_eq13_typo)

@@ -30,8 +30,10 @@ import torch
 
 from repro_torch.configs import ARCHS
 from repro_torch.core.alternating import solve_joint
+from repro_torch.core.batch import solve_joint_batch
 from repro_torch.core.optimal import solve_joint_optimal
 from repro_torch.core.problem import sample_problem
+from repro_torch.core.scenarios import make_batch, make_mixed_batch
 from repro_torch.core.schedulers import ProbabilisticScheduler
 from repro_torch.fl import experiments
 from repro_torch.fl.engine import FLConfig, quantize_levels, run_fl
@@ -199,6 +201,47 @@ def test_drop_in_solvers_match_plain_solvers(dev, tau):
     torch.testing.assert_close(exact.a, ref.a, rtol=0, atol=SOLVE_TOL)
     torch.testing.assert_close(exact.power, ref.power, rtol=SOLVE_TOL,
                                atol=SOLVE_TOL)
+
+
+BATCHES = {
+    "rayleigh_fading": lambda dev: make_batch("rayleigh_fading", 8, seed=1,
+                                              device=dev),
+    "mixed": lambda dev: make_mixed_batch(
+        ["paper_static", "bandwidth_starved", "sparse_energy_starved",
+         "hetero_bandwidth"], seed=2, device=dev),
+    "b_eq_nmax": lambda dev: make_batch("paper_static", 33, seed=3,
+                                        n_devices=33, device=dev),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BATCHES))
+def test_batch_kernel_methods_match_plain_methods(dev, name):
+    """One launch of each kernel over a whole batch, held against
+    ``method="optimal"`` / ``"fused"`` and, bit for bit, against each
+    instance's own kernel solve; padded slots come back 0."""
+    batch = BATCHES[name](dev)
+    before = dict(cuda_lib.LAUNCHES)
+    kern = solve_joint_batch(batch, method="kernel")
+    fused_k = solve_joint_batch(batch, method="fused_kernel")
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["selection_solve"] == before["selection_solve"] + 1
+    assert cuda_lib.LAUNCHES["fused_solve"] == before["fused_solve"] + 1
+    for got, plain in ((kern, solve_joint_batch(batch, method="optimal")),
+                       (fused_k, solve_joint_batch(batch, method="fused"))):
+        torch.testing.assert_close(got.a, plain.a, rtol=0, atol=SOLVE_TOL)
+        torch.testing.assert_close(got.power, plain.power, rtol=SOLVE_TOL,
+                                   atol=SOLVE_TOL)
+        torch.testing.assert_close(got.objective, plain.objective, rtol=0,
+                                   atol=SOLVE_TOL)
+        pad = ~batch.mask
+        assert not bool(got.a[pad].any()) and not bool(got.power[pad].any())
+    for b, problem in enumerate(batch.unstack()):
+        for got, one in ((kern, solve_ops.solve_joint_kernel(problem)),
+                         (fused_k, solve_ops.solve_joint_fused_kernel(problem))):
+            assert torch.equal(got.instance(b).a, one.a)
+            assert torch.equal(got.instance(b).power, one.power)
+            assert bool(problem.constraints_satisfied(
+                got.instance(b).a, got.instance(b).power, rtol=1e-3).all())
 
 
 def test_sweep_with_kernel_aggregate_matches_fused_path(dev):
