@@ -51,7 +51,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (E = 1,000,000) through both kernel methods, every instance feasible,
    timed beside the kernels' bound, the work their function needs
    (``element_work``), and phase [1]'s count of the compiled loop;
-9. print the kernel record, the card, and the last line
+9. drive the fleet control plane (``repro_torch.serve``) at the
+   reference demos' sizes: ``serve_demo``'s closed-loop stream (8
+   drifting_metro cells of 64 devices, 8 rounds, Dinkelbach) warm against
+   cold, whose warm inner iterations must stay below cold's; the open
+   loop (warmup, measured capacity, a seeded Poisson trace of 120
+   requests at 0.7 of it); the same trace on a virtual clock on the card
+   and on the CPU, whose batch logs must be equal and answers within
+   1e-5; ``metro_coupled`` (16 x 64, the backhaul budget) and
+   ``interference_grid`` (16 x 32) through ``solve_coupled``, cold and
+   warm from ``resume``, and zero coupling bit for bit the uncoupled
+   solve; 16 ``dense_1k`` cells in bucket 1,024; and a chaos drive over
+   every fault kind with no non-finite answer.  No kernel lies on this
+   path;
+10. print the kernel record, the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero without a CUDA device and
@@ -701,6 +714,228 @@ def run_batched(torch, dev) -> dict:
             check(err <= SOLVE_TOL, f"{label}/{m}: differs from {plain} by {err}")
     return dict(launches=launches, batches=[(label, batch) for label, batch, _
                                             in results] + mega)
+
+
+# ------------------------------------------------- the fleet control plane
+
+def served_err(responses, yardstick) -> tuple[float, float]:
+    """max |a - a_cpu| and the largest P* error in units of 1 + |P_cpu|
+    (the atol = rtol test) over responses matched by sequence number."""
+    import numpy as np
+    want = {r.seq: r for r in yardstick}
+    err_a = err_p = 0.0
+    for r in responses:
+        w = want[r.seq].solution
+        err_a = max(err_a, float(np.max(np.abs(r.solution.a - w.a))))
+        err_p = max(err_p, float(np.max(np.abs(r.solution.power - w.power)
+                                        / (1.0 + np.abs(w.power)))))
+    return err_a, err_p
+
+
+def coupled_err(torch, sol, cpu) -> float:
+    return max(float((sol.batch.a.cpu() - cpu.batch.a).abs().max()),
+               float(((sol.batch.power.cpu() - cpu.batch.power).abs()
+                      / (1.0 + cpu.batch.power.abs())).max()))
+
+
+def control_plane_layers(torch, dev, cells, args, tag: str) -> None:
+    """Where a served micro-batch's time goes: one full batch of the
+    demo's cells (round 1, warm from round 0; 64 devices, a power-of-two
+    bucket), median of 5, by layer:
+    intake (health mask, key), stacking, the batched solve (warm, ending
+    in a synchronise), the host reads, and the whole ``step``; then the
+    solve's device-busy time from the profiler."""
+    import statistics
+    from repro_torch.core.batch import pad_batch, stack_problems
+    from repro_torch.core.scenarios import slice_round
+    from repro_torch.serve import FleetControlService, ServiceConfig
+    svc = FleetControlService(ServiceConfig(
+        max_batch=args.max_batch, power_solver=args.power_solver), device=dev)
+    svc.run([(i, slice_round(c, 0)) for i, c in enumerate(cells)])
+    probs = [slice_round(c, 1) for c in cells[:args.max_batch]]
+    parts = {k: [] for k in ("intake", "stack", "solve", "reads", "step")}
+    for _ in range(5):
+        t0 = time.perf_counter()
+        reqs = [svc.submit(i, p) for i, p in enumerate(probs)]
+        t1 = time.perf_counter()
+        svc.step()
+        t2 = time.perf_counter()
+        batch = pad_batch(stack_problems([r.problem for r in reqs],
+                                         device=dev),
+                          batch_size=args.max_batch, n_max=args.devices)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        # each request's cached state, as the service packs it
+        init = [torch.zeros(svc._sol_shape(batch), device=dev)
+                for _ in range(2)]
+        for i in range(len(reqs)):
+            seed = svc._cell_cache.get(i)
+            init[0][i, :args.devices] = torch.from_numpy(seed.a).to(dev)
+            init[1][i, :args.devices] = torch.from_numpy(seed.power).to(dev)
+        sol = svc._solve(batch, init=init)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        torch.stack([sol.a, sol.power]).cpu()
+        torch.stack([sol.objective.double(), sol.converged.double(),
+                     sol.n_iters.double()]).cpu()
+        t5 = time.perf_counter()
+        for k, v in zip(parts, (t1 - t0, t3 - t2, t4 - t3, t5 - t4,
+                                t2 - t1)):
+            parts[k].append(v * 1e3)
+    med = {k: statistics.median(v) for k, v in parts.items()}
+    total, _, _ = device_ms(torch, lambda: svc._solve(batch, init=init), 5)
+    print(f"  a served batch of {args.max_batch} (median of 5): intake "
+          f"{med['intake']:.3f} ms, stacking {med['stack']:.3f}, the warm "
+          f"solve {med['solve']:.3f} (device busy {total:.3f}, idle "
+          f"{1 - total / med['solve']:.3f}), host reads {med['reads']:.3f}; "
+          f"step() {med['step']:.3f} ms {tag}")
+
+
+def run_control_plane(torch, dev, card_line: str) -> None:
+    """The fleet control plane at the reference demos' own sizes: the
+    closed-loop stream warm against cold, the open loop at 0.7 of the
+    measured capacity, the coupled metros cold and warm, a dense_1k
+    batch in bucket 1,024, a chaos drive over every fault kind, and the
+    card's answers against the port's own CPU run of the same trace."""
+    import numpy as np
+    from repro_torch import serve_demo
+    from repro_torch.core.batch import solve_joint_batch
+    from repro_torch.core.multicell import solve_coupled
+    from repro_torch.core.scenarios import make_problem, slice_round
+    from repro_torch.serve import (FAULT_KINDS, FaultPlan, FleetControlService,
+                                   ServiceConfig, chaos_drive, drive,
+                                   measure_capacity, poisson_trace)
+    tag = f"[{card_line}]"
+    args = serve_demo.parser().parse_args([])
+    cells = serve_demo.make_stream(args)
+    print(f"  serve_demo defaults: {args.cells} drifting_metro cells x "
+          f"{args.devices} devices x {args.rounds} rounds (requests on the "
+          f"host), max_batch {args.max_batch}, {args.power_solver}")
+
+    inner = {}
+    for label, warm in (("warm", True), ("cold", False)):
+        svc = FleetControlService(ServiceConfig(
+            max_batch=args.max_batch, power_solver=args.power_solver,
+            warm_start=warm), device=dev)
+        s = serve_demo.stream_rounds(svc, cells, args.rounds).summary()
+        inner[label] = s["mean_inner_iters"]
+        print(f"  closed loop [{label}] {s['solves_per_sec']:.1f} solves/s, "
+              f"p50 {s['p50_latency_s'] * 1e3:.3f} ms, p99 "
+              f"{s['p99_latency_s'] * 1e3:.3f} ms, inner iters/batch "
+              f"{s['mean_inner_iters']:.2f}, warm share "
+              f"{s['warm_fraction']:.2f}, {s['batches']} batches {tag}")
+    check(inner["warm"] < inner["cold"],
+          f"warm inner iterations {inner['warm']} not below cold "
+          f"{inner['cold']}")
+
+    svc = FleetControlService(ServiceConfig(
+        max_batch=args.max_batch, power_solver=args.power_solver), device=dev)
+    probe = [slice_round(c, 0) for c in cells]
+    wtimes = svc.warmup(probe[0], max_devices=args.devices)
+    cap = measure_capacity(svc, probe)
+    svc.stats.reset()
+    deadline = 8.0 * args.max_batch / cap
+    rate = args.load * cap
+    trace = poisson_trace(cells, rate_hz=rate, n_requests=args.requests,
+                          seed=args.seed, deadline_s=deadline)
+    rep = drive(svc, trace, reset_stats_after=args.requests // 4)
+    s = svc.stats.summary()
+    print(f"  warmup: buckets {sorted(wtimes)} in "
+          f"{sum(wtimes.values()) * 1e3:.1f} ms; capacity {cap:.1f} "
+          f"solves/s {tag}")
+    print(f"  open loop at {args.load} x capacity ({rep.offered_rate_hz:.1f} "
+          f"req/s offered, deadline {deadline * 1e3:.3f} ms, "
+          f"{args.requests} requests): sustained "
+          f"{rep.sustained_rate_hz:.1f} solves/s, p50 "
+          f"{s['p50_latency_s'] * 1e3:.3f} ms, p99 "
+          f"{s['p99_latency_s'] * 1e3:.3f} ms, deadline misses "
+          f"{s['deadline_miss_rate']:.4f}, warm share "
+          f"{s['warm_fraction']:.4f}, closes {s['closes']} {tag}")
+    check(len(rep.responses) == args.requests, "the open loop lost requests")
+    control_plane_layers(torch, dev, cells, args, tag)
+
+    # the same seeded trace on a virtual clock, on the card and on the CPU
+    logs, answers = [], []
+    for where in (dev, torch.device("cpu")):
+        t = poisson_trace(cells, rate_hz=rate, n_requests=args.requests,
+                          seed=args.seed, deadline_s=deadline)
+        vsvc = FleetControlService(ServiceConfig(
+            max_batch=args.max_batch, power_solver=args.power_solver,
+            cost_smoothing=0.0, record_batches=True), device=where)
+        answers.append(drive(vsvc, t, clock="virtual").responses)
+        logs.append(vsvc.batch_log)
+    err_a, err_p = served_err(*answers)
+    print(f"  virtual clock, card against CPU: {len(logs[0])} batches, "
+          f"logs equal {logs[0] == logs[1]}, max|a| {err_a:.3e}, "
+          f"P* {err_p:.3e}")
+    check(logs[0] == logs[1], "the card's batch log differs from the CPU's")
+    check(err_a <= SOLVE_TOL and err_p <= SOLVE_TOL,
+          f"the card's answers differ from the CPU's ({err_a}, {err_p})")
+
+    for name in ("metro_coupled", "interference_grid"):
+        mc = make_problem(name, seed=0, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cold = solve_coupled(mc)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        warm = solve_coupled(mc, init=cold.resume)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        cpu = solve_coupled(make_problem(name, seed=0, device="cpu"))
+        err = coupled_err(torch, cold, cpu)
+        print(f"  {name} ({mc.n_cells} x {mc.cells.n_max}): cold "
+              f"{cold.outer_iters} outer iterations, residual "
+              f"{cold.residual:.3e}, {(t1 - t0) * 1e3:.1f} ms; warm "
+              f"{warm.outer_iters}, residual {warm.residual:.3e}, "
+              f"{(t2 - t1) * 1e3:.1f} ms; mu {np.max(cold.mu):.4e}; "
+              f"against CPU {err:.3e} ({cpu.outer_iters} outer) {tag}")
+        check(cold.converged and warm.converged, f"{name} did not converge")
+        check(warm.outer_iters < cold.outer_iters,
+              f"{name}: warm duals took {warm.outer_iters} outer steps")
+        check(cold.outer_iters == cpu.outer_iters and err <= SOLVE_TOL,
+              f"{name}: the card's solve differs from the CPU's ({err})")
+    zero = make_problem("metro_coupled", seed=0, device=dev,
+                        coupling_gain=0.0, backhaul_fraction=None)
+    sol, plain = solve_coupled(zero), solve_joint_batch(zero.cells,
+                                                        method="fused")
+    check(torch.equal(sol.batch.a, plain.a)
+          and torch.equal(sol.batch.power, plain.power),
+          "zero coupling differs from the uncoupled fused solve")
+    print("  zero coupling: bit for bit the uncoupled fused solve")
+
+    dense = [make_problem("dense_1k", seed=s, device=dev) for s in range(16)]
+    dsvc = FleetControlService(ServiceConfig(max_batch=16), device=dev)
+    got = dsvc.run(list(enumerate(dense)))
+    buckets, lat = dsvc.buckets_used, dsvc.stats.latency_percentile(50)
+    on_cpu = FleetControlService(ServiceConfig(max_batch=16), device="cpu")
+    err_a, err_p = served_err(got, on_cpu.run(
+        [(i, p.to("cpu")) for i, p in enumerate(dense)]))
+    feasible = all(bool(p.constraints_satisfied(
+        torch.from_numpy(r.solution.a).to(dev),
+        torch.from_numpy(r.solution.power).to(dev), rtol=1e-3).all())
+        for p, r in zip(dense, sorted(got, key=lambda r: r.seq)))
+    print(f"  dense_1k x 16 (bucket {sorted(buckets)}, "
+          f"{16 * 1024:,} elements a batch): {lat * 1e3:.3f} ms, "
+          f"feasible={feasible}, against CPU max|a| {err_a:.3e}, "
+          f"P* {err_p:.3e} {tag}")
+    check(buckets == {1024} and feasible and max(err_a, err_p) <= SOLVE_TOL,
+          "dense_1k batch failed")
+
+    csvc = FleetControlService(ServiceConfig(
+        max_batch=args.max_batch, cost_smoothing=0.0), device=dev)
+    plan = FaultPlan(kinds=FAULT_KINDS, seed=args.seed, fault_rate=0.25,
+                     device_rate=0.1)
+    chaos = chaos_drive(csvc, poisson_trace(cells, rate_hz=rate,
+                                            n_requests=args.requests,
+                                            seed=args.seed), plan)
+    print(f"  chaos over {FAULT_KINDS}: {chaos.n_faulted} of "
+          f"{args.requests} arrivals faulted, {chaos.n_unhealthy_devices} "
+          f"devices sanitised, {chaos.n_unconverged} unconverged, "
+          f"{chaos.n_shed} shed, non-finite responses {chaos.nan_escapes}")
+    check(chaos.nan_escapes == 0 and chaos.n_unhealthy_devices > 0
+          and len(chaos.report.responses) == args.requests,
+          "the chaos drive leaked a non-finite answer or lost a request")
 
 
 def time_batched(torch, dev, batches, sass) -> None:
@@ -1767,6 +2002,11 @@ def main() -> int:
     batched = run_batched(torch, dev)
     time_batched(torch, dev, batched.pop("batches"), sass)
 
+    print("[9] the fleet control plane" + at(), flush=True)
+    t9 = time.perf_counter()
+    run_control_plane(torch, dev, card_line)
+    print(f"  phase [9] {time.perf_counter() - t9:.1f} s")
+
     sources = {"fused_solve": ("src/repro_torch/csrc/selection_solve.cu",
                                "src/repro/kernels/selection_solve/kernel.py:143"),
                "selection_solve": ("src/repro_torch/csrc/selection_solve.cu",
@@ -1784,7 +2024,7 @@ def main() -> int:
                     launches=out["launches"][name], max_abs_err=errs[name],
                     **rec[name])
                for name, (src, rep) in sources.items()]
-    print(f"[9] done in {time.perf_counter() - t_start:.1f} s; peak device "
+    print(f"[10] done in {time.perf_counter() - t_start:.1f} s; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(card_line)

@@ -1,10 +1,11 @@
 """Numpy in, tensors out: how state made elsewhere enters the port.
 
 The port never sees a foreign array type.  A caller that holds the
-reference's model parameters or problem converts them to numpy first
-(``np.asarray`` leafwise) and hands them in here; the layouts are the
-reference's (HWIO conv weights, ``[N]``/``[N, K]`` problem leaves, the
-transformer's ``[d_in, d_out]`` weights with stacked ``reps`` leaves).
+reference's model parameters, problem or solver state converts them to
+numpy first (``np.asarray`` leafwise) and hands them in here; the layouts
+are the reference's (HWIO conv weights, ``[N]``/``[N, K]`` problem
+leaves, the transformer's ``[d_in, d_out]`` weights with stacked
+``reps`` leaves, ``(a, power)`` warm starts shaped like the solution).
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.alternating import WarmStart
+from repro_torch.core.multicell import CoupledDuals
 from repro_torch.core.problem import _TENSOR_FIELDS, WirelessFLProblem
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_map
@@ -51,3 +54,23 @@ def problem_from_numpy(fields: dict, device=None) -> WirelessFLProblem:
         elif value is not None:
             kw[name] = _tensor(np.asarray(value), dev)
     return WirelessFLProblem(**kw)
+
+
+def warm_start_from_numpy(a, power, device=None) -> WarmStart:
+    """A warm-start state (``JointSolution.resume``,
+    ``BatchSolution.resume``) from host arrays, float32 on ``device``."""
+    dev = resolve_device(device)
+    return WarmStart(a=_tensor(np.asarray(a, np.float32), dev),
+                     power=_tensor(np.asarray(power, np.float32), dev))
+
+
+def coupled_duals_from_numpy(interference, mu, warm_a=None, warm_power=None,
+                             device=None) -> CoupledDuals:
+    """A metro tick's dual state (``MultiCellSolution.resume``) from host
+    arrays: the interference estimate and backhaul price stay float64
+    numpy, as the outer loop keeps them; the element warm start, when
+    given, becomes float32 tensors on ``device``."""
+    warm = None if warm_a is None else warm_start_from_numpy(
+        warm_a, warm_power, device)
+    return CoupledDuals(interference=np.array(interference, np.float64),
+                        mu=np.array(mu, np.float64), warm=warm)

@@ -3,6 +3,7 @@
 from repro_torch.core.alternating import (
     FleetElements,
     JointSolution,
+    WarmStart,
     fused_fixed_point,
     fused_fixed_point_flat,
     problem_elements,
@@ -19,7 +20,16 @@ from repro_torch.core.batch import (
     solve_joint_batch,
     stack_problems,
 )
-from repro_torch.core.multicell import MultiCellProblem, grid_coupling, make_multicell
+from repro_torch.core.multicell import (
+    CoupledDuals,
+    MultiCellProblem,
+    MultiCellSolution,
+    cell_interference,
+    grid_coupling,
+    make_multicell,
+    solve_coupled,
+    solve_coupled_loop,
+)
 from repro_torch.core.optimal import solve_joint_optimal
 from repro_torch.core.power import (PowerSolution, analytic_power,
                                     dinkelbach_power, energy_bound_ok)
@@ -47,7 +57,7 @@ from repro_torch.core.scenarios import (
 from repro_torch.core.selection import optimal_selection
 
 __all__ = [
-    "FleetElements", "JointSolution", "fused_fixed_point",
+    "FleetElements", "JointSolution", "WarmStart", "fused_fixed_point",
     "fused_fixed_point_flat", "problem_elements", "select_best_bits",
     "solve_joint",
     "solve_joint_fused", "solve_joint_trace", "solve_joint_optimal",
@@ -60,5 +70,7 @@ __all__ = [
     "solve_joint_batch", "batch_elements", "pad_batch",
     "Scenario", "SCENARIOS", "make_problem", "make_batch", "make_mixed_batch",
     "gauss_markov_fading", "slice_round",
-    "MultiCellProblem", "make_multicell", "grid_coupling",
+    "MultiCellProblem", "MultiCellSolution", "CoupledDuals",
+    "make_multicell", "grid_coupling", "cell_interference",
+    "solve_coupled", "solve_coupled_loop",
 ]

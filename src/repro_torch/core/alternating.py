@@ -23,15 +23,23 @@ Three implementations, as in ``repro.core.alternating``:
 
 The loops are python loops that read one flag from the device per step.
 The port runs on one device: ``mesh`` is refused and ``shard`` changes
-nothing but the code path, as in the reference on one device.  Warm
-starts (``init=``) and ``sanitize=`` belong to later slices and raise
-``NotImplementedError``.
+nothing but the code path, as in the reference on one device.
+
+Warm starts (the serving path), with the reference's semantics: every
+solver takes ``init=(a0, p0)``, typically ``previous.resume`` of a
+solution on a nearby problem.  The selection iterate still starts from
+eq. (13) at P^max; what the state seeds is Dinkelbach's lambda, lam0 =
+a0 P0 T(P0) on the current channel (``element_warm_lambda``), so the
+solution is unchanged and only the inner iteration count drops.  The
+closed-form ``"analytic"`` mode takes ``init`` as a no-op.  Without
+``init`` every solver runs exactly the cold path.
 """
 from __future__ import annotations
 
 import functools
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.power import (
@@ -41,6 +49,7 @@ from repro_torch.core.power import (
     dinkelbach_power,
     dinkelbach_power_elements,
     element_tx_time,
+    element_warm_lambda,
     energy_bound_ok,
     energy_gate_elements,
 )
@@ -48,8 +57,12 @@ from repro_torch.core.problem import WirelessFLProblem
 from repro_torch.core.selection import optimal_selection, selection_update_elements
 
 
-def _not_in_this_slice(what: str, slice_: str):
-    raise NotImplementedError(f"{what} is not ported yet; it comes with {slice_}")
+class WarmStart(NamedTuple):
+    """Resumable solver state: a previous solution's ``(a, power)``, fed
+    back as ``init=`` to warm-start the next solve on a nearby problem."""
+
+    a: torch.Tensor
+    power: torch.Tensor
 
 
 class JointSolution(NamedTuple):
@@ -63,6 +76,11 @@ class JointSolution(NamedTuple):
     # per-element uplink widths chosen by the bit-allocation step; set
     # only when solving with a ``bit_menu``
     bits: Optional[torch.Tensor] = None
+
+    @property
+    def resume(self) -> WarmStart:
+        """The resumable warm-start state for a subsequent nearby solve."""
+        return WarmStart(a=self.a, power=self.power)
 
 
 def _init_state(problem: WirelessFLProblem, shape):
@@ -103,14 +121,28 @@ def _converged(obj: torch.Tensor, obj_prev: torch.Tensor, eps: float) -> bool:
     return bool(torch.abs(obj - obj_prev) < eps)
 
 
-def _power_solver(power_solver: str, init) -> Callable[..., PowerSolution]:
-    if init is not None:
-        _not_in_this_slice("init= (warm starts)", "the serving slice")
+def _f32(x, shape, device) -> torch.Tensor:
+    """A warm-start operand (a tensor, or a host array such as the
+    reference's state) as a float32 tensor of ``shape`` on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x, np.float32))
+    return torch.broadcast_to(x.to(device, torch.float32), shape)
+
+
+def _warm_solver(problem: WirelessFLProblem, power_solver: str, init,
+                 shape) -> Callable[..., PowerSolution]:
+    """The power solver, Dinkelbach's lambda seeded from ``init``."""
     if power_solver == "analytic":
-        return analytic_power
-    if power_solver == "dinkelbach":
+        return analytic_power          # closed form: init is a no-op
+    if power_solver != "dinkelbach":
+        raise ValueError(f"unknown power_solver {power_solver!r}")
+    if init is None:
         return dinkelbach_power
-    raise ValueError(f"unknown power_solver {power_solver!r}")
+    a0, p0 = (_f32(x, shape, problem.device) for x in init)
+    bw = problem.bandwidth_hz if a0.ndim == 1 else problem.bandwidth_hz[:, None]
+    lam0 = element_warm_lambda(a0, p0, problem._pg(a0), bw,
+                               s_bits=problem.payload_bits(a0.ndim))
+    return functools.partial(dinkelbach_power, lam0=lam0)
 
 
 def solve_joint(problem: WirelessFLProblem, *, eps: float = 1e-7,
@@ -118,11 +150,13 @@ def solve_joint(problem: WirelessFLProblem, *, eps: float = 1e-7,
                 faithful_eq13_typo: bool = False, per_round: bool = True,
                 init=None) -> JointSolution:
     """Run Algorithm 2 to convergence for the whole fleet: at most
-    ``max_iters`` steps, ``n_iters`` the number taken."""
+    ``max_iters`` steps, ``n_iters`` the number taken.  ``init=(a0, p0)``
+    warm-starts it (module docstring)."""
     shape = _solution_shape(problem, per_round)
     a0, _ = _init_state(problem, shape)
     step = functools.partial(_alternating_step,
-                             solver=_power_solver(power_solver, init),
+                             solver=_warm_solver(problem, power_solver,
+                                                 init, shape),
                              faithful_eq13_typo=faithful_eq13_typo)
     a, p, inner = step(problem, a0)
     obj, obj_prev, it = problem.objective(a), problem.objective(a0), 1
@@ -141,11 +175,13 @@ def solve_joint_trace(problem: WirelessFLProblem, *, eps: float = 1e-7,
                       faithful_eq13_typo: bool = False, init=None
                       ) -> tuple[JointSolution, list[float]]:
     """``solve_joint`` recording the objective after every step; the trace
-    length and ``n_iters`` match ``solve_joint`` step for step."""
+    length and ``n_iters`` match ``solve_joint`` step for step, and
+    ``init`` warm-starts it the same way."""
     shape = _solution_shape(problem, per_round=True)
     a, p = _init_state(problem, shape)
     step = functools.partial(_alternating_step,
-                             solver=_power_solver(power_solver, init),
+                             solver=_warm_solver(problem, power_solver,
+                                                 init, shape),
                              faithful_eq13_typo=faithful_eq13_typo)
     obj_prev = problem.objective(a)
     trace = [float(obj_prev)]
@@ -294,13 +330,15 @@ def fused_fixed_point(el: FleetElements, *, s_bits: float, tau: float,
     steps counted like ``solve_joint``.  Returns ``(a, power, n_iters,
     converged, inner_iters)`` with ``converged`` per element.
 
+    ``init=(a0, p0)`` element tensors warm-start the solve (module
+    docstring): the Dinkelbach mode's lambda is seeded from the state's
+    energy; the analytic mode ignores it.
+
     ``bit_menu`` (widths in (0, 32]) expands the elements with a leading
     candidate axis, one slice per width, runs every candidate to its own
     fixed point in the one loop, and reduces the axis with
     :func:`select_best_bits`; the return value gains a trailing ``bits``.
     """
-    if init is not None:
-        _not_in_this_slice("init= (warm starts)", "the serving slice")
     if bit_menu is not None:
         _, payloads = _menu_payloads(el, s_bits=s_bits, bit_menu=bit_menu)
         m, shape = len(payloads), el.pg.shape
@@ -313,17 +351,25 @@ def fused_fixed_point(el: FleetElements, *, s_bits: float, tau: float,
             shape) for s_b in payloads])
         el_m = FleetElements(pg=expand(el.pg), bw=expand(el.bw),
                              emax=expand(el.emax), ec=expand(el.ec), sbits=sb)
+        init_m = None if init is None else tuple(
+            expand(_f32(x, shape, el.pg.device)) for x in init)
         a_m, p_m, iters, conv_m, inner = fused_fixed_point(
             el_m, s_bits=s_bits, tau=tau, p_max=p_max, eps=eps,
             max_iters=max_iters, power_solver=power_solver,
-            faithful_eq13_typo=faithful_eq13_typo)
+            faithful_eq13_typo=faithful_eq13_typo, init=init_m)
         a, p, bits = select_best_bits(a_m, p_m, sb, s_bits=s_bits)
         return a, p, iters, torch.all(conv_m, dim=0), inner, bits
+    lam0 = 1e-3
+    if init is not None and power_solver == "dinkelbach":
+        a_w, p_w = (_f32(x, el.pg.shape, el.pg.device) for x in init)
+        lam0 = element_warm_lambda(a_w, p_w, el.pg, el.bw,
+                                   s_bits=s_bits if el.sbits is None
+                                   else el.sbits)
     a0, _ = fused_init(el, s_bits=s_bits, tau=tau, p_max=p_max,
                        faithful_eq13_typo=faithful_eq13_typo)
     step = functools.partial(_fused_step, el=el, s_bits=s_bits, tau=tau,
                              p_max=p_max, power_solver=power_solver,
-                             faithful_eq13_typo=faithful_eq13_typo)
+                             faithful_eq13_typo=faithful_eq13_typo, lam0=lam0)
     a, p, inner = step(a0)
     delta, it = torch.abs(a - a0), 1
     while it < max_iters and bool(torch.any(delta >= eps)):
@@ -355,9 +401,11 @@ def fused_fixed_point_flat(el: FleetElements, *, s_bits: float, tau: float,
     ``chunk_elements`` bounds the working set: the element axis is padded
     to whole chunks (padding self-deselects) and solved chunk by chunk,
     each chunk with its own stopping rule.  ``n_iters`` is the largest
-    chunk's count and ``inner_iters`` the sum.  ``mesh`` is refused (one
-    device); ``shard`` is a no-op on one device.  With a ``bit_menu`` the
-    return value gains a trailing flat ``bits``.
+    chunk's count and ``inner_iters`` the sum.  ``init=(a0, p0)`` flat
+    element tensors warm-start the solve, padded (with zeros: cold) and
+    chunked alongside the elements.  ``mesh`` is refused (one device);
+    ``shard`` is a no-op on one device.  With a ``bit_menu`` the return
+    value gains a trailing flat ``bits``.
     """
     if el.pg.ndim != 1:
         raise ValueError("fused_fixed_point_flat takes flat [E] elements")
@@ -365,20 +413,24 @@ def fused_fixed_point_flat(el: FleetElements, *, s_bits: float, tau: float,
         raise ValueError("the port runs on one device; mesh must be None")
     kw = dict(s_bits=s_bits, tau=tau, p_max=p_max, eps=eps,
               max_iters=max_iters, power_solver=power_solver,
-              faithful_eq13_typo=faithful_eq13_typo, init=init,
-              bit_menu=bit_menu)
+              faithful_eq13_typo=faithful_eq13_typo, bit_menu=bit_menu)
     e = el.pg.shape[0]
     if chunk_elements is None:
-        return fused_fixed_point(el, **kw)
+        return fused_fixed_point(el, init=init, **kw)
     padded = {f: _pad_flat(getattr(el, f), chunk_elements, _ELEMENT_PAD[f])
               for f in _ELEMENT_PAD}
     if el.sbits is not None:
         padded["sbits"] = _pad_flat(el.sbits, chunk_elements, 1.0)
+    if init is not None:
+        init = [_pad_flat(_f32(x, (e,), el.pg.device), chunk_elements, 0.0)
+                for x in init]
     outs = []
     for lo in range(0, padded["pg"].shape[0], chunk_elements):
         chunk = FleetElements(**{f: x[lo:lo + chunk_elements]
                                  for f, x in padded.items()})
-        outs.append(fused_fixed_point(chunk, **kw))
+        init_c = None if init is None else tuple(
+            x[lo:lo + chunk_elements] for x in init)
+        outs.append(fused_fixed_point(chunk, init=init_c, **kw))
     a, p, iters, conv, inner, *bits = zip(*outs)
     out = (torch.cat(a)[:e], torch.cat(p)[:e], max(iters),
            torch.cat(conv)[:e], sum(inner))
@@ -399,11 +451,18 @@ def solve_joint_fused(problem: WirelessFLProblem, *, eps: float = 1e-7,
     :func:`fused_fixed_point_flat`.  ``bit_menu`` (e.g. ``(8, 16, 32)``)
     adds the bit-allocation step, and ``JointSolution.bits`` carries the
     chosen widths; ``None`` runs the solve without it, ``bits=None``.
+
+    ``sanitize=True`` maps devices with non-finite or out-of-domain data
+    to self-deselecting no-ops (``WirelessFLProblem.sanitize``) first;
+    on healthy input it changes nothing.  ``init=(a0, p0)``, shaped like
+    the solution, warm-starts the solve (module docstring).
     """
     if sanitize:
-        _not_in_this_slice("sanitize=True", "the fault-handling slice")
+        problem, _ = problem.sanitize()
     el = problem_elements(problem, per_round)
     shape = el.pg.shape
+    if init is not None:
+        init = tuple(_f32(x, shape, problem.device) for x in init)
     kw = dict(s_bits=problem.grad_size_bits, tau=problem.tau_th,
               p_max=problem.p_max, eps=eps, max_iters=max_iters,
               power_solver=power_solver,
@@ -412,6 +471,8 @@ def solve_joint_fused(problem: WirelessFLProblem, *, eps: float = 1e-7,
     if chunk_elements is None and not shard and mesh is None:
         a, p, iters, conv, inner, *bits = fused_fixed_point(el, **kw)
     else:
+        kw["init"] = None if init is None else tuple(
+            x.reshape(-1) for x in init)
         flat = FleetElements(*(None if x is None else x.reshape(-1)
                                for x in el))
         a, p, iters, conv, inner, *bits = fused_fixed_point_flat(

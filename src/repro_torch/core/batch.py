@@ -28,9 +28,12 @@ instance frozen once its own stopping rule holds, so each keeps its own
 ``n_iters``, ``converged`` and inner (Dinkelbach) count, as under
 ``vmap``; ``fused`` runs one convergence-masked loop over the whole
 flattened element set, with one shared count.  The port runs on one
-device: ``mesh`` is refused and ``shard`` changes nothing.  Warm starts
-(``init=``) and ``sanitize=True`` come with the serving slice and raise
-``NotImplementedError``.
+device: ``mesh`` is refused and ``shard`` changes nothing.
+
+``init=`` warm-starts the two iterative methods from a previous
+``BatchSolution.resume`` (all-zero rows run exactly cold), and
+``sanitize=True`` degrades unhealthy devices to self-deselecting
+no-ops first, as in the reference.
 """
 from __future__ import annotations
 
@@ -43,12 +46,14 @@ import torch
 from repro_torch.core.alternating import (
     FleetElements,
     JointSolution,
+    WarmStart,
+    _f32,
     _fused_step,
-    _not_in_this_slice,
     fused_fixed_point_flat,
     fused_init,
 )
 from repro_torch.core.optimal import N_BISECT, optimal_elements
+from repro_torch.core.power import element_warm_lambda
 from repro_torch.core.problem import (
     _BITS_FILL,
     _FADING_FILL,
@@ -94,6 +99,11 @@ class BatchSolution(NamedTuple):
             inner_iters=int(inner[b]) if isinstance(inner, torch.Tensor)
             else int(inner),
             bits=None if self.bits is None else self.bits[b, :n])
+
+    @property
+    def resume(self) -> WarmStart:
+        """Batch warm-start state for a subsequent nearby batched solve."""
+        return WarmStart(a=self.a, power=self.power)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,14 +291,20 @@ def _constants(problem: WirelessFLProblem) -> dict:
 
 def _solve_alternating(batch: ProblemBatch, *, power_solver: str,
                        faithful_eq13_typo: bool, eps: float,
-                       max_iters: int) -> JointSolution:
+                       max_iters: int, init) -> JointSolution:
     """Algorithm 2 on every instance in lockstep: ``solve_joint``'s steps
-    and stopping rule, each instance frozen once its own rule holds."""
+    and stopping rule, each instance frozen once its own rule holds.
+    ``init`` seeds each instance's Dinkelbach lambda from its own row, as
+    ``solve_joint(problem, init=(a0, p0))`` does per instance."""
     el = batch_elements(batch)
     w = batch.problem.weights
     # solve_joint's a^0 is the corrected eq. (13) whatever the steps use
     a0, _ = fused_init(el, **_constants(batch.problem))
     kw = dict(_constants(batch.problem), faithful_eq13_typo=faithful_eq13_typo)
+    if init is not None and power_solver == "dinkelbach":
+        kw["lam0"] = element_warm_lambda(
+            *init, el.pg, el.bw, s_bits=batch.problem.grad_size_bits
+            if el.sbits is None else el.sbits)
     a, p, inner = _fused_step(a0, el, power_solver=power_solver,
                               batch_dims=1, **kw)
     b = batch.batch_size
@@ -329,7 +345,7 @@ def fixed_steps_solution(batch: ProblemBatch, a: torch.Tensor,
 def _solve_fused(batch: ProblemBatch, *, power_solver: str,
                  faithful_eq13_typo: bool, eps: float, max_iters: int,
                  chunk_elements: Optional[int], shard: bool,
-                 bit_menu: Optional[tuple]) -> JointSolution:
+                 bit_menu: Optional[tuple], init) -> JointSolution:
     """The fused flat path: one convergence-masked loop over the whole
     ``[B * N_max (* K)]`` element set, optionally chunked."""
     el = batch_elements(batch)
@@ -338,7 +354,9 @@ def _solve_fused(batch: ProblemBatch, *, power_solver: str,
     a, p, iters, conv, inner, *bits = fused_fixed_point_flat(
         flat, eps=eps, max_iters=max_iters, power_solver=power_solver,
         faithful_eq13_typo=faithful_eq13_typo, chunk_elements=chunk_elements,
-        shard=shard, bit_menu=bit_menu, **_constants(batch.problem))
+        shard=shard, bit_menu=bit_menu,
+        init=None if init is None else tuple(x.reshape(-1) for x in init),
+        **_constants(batch.problem))
     a, p = a.reshape(shape), p.reshape(shape)
     b = batch.batch_size
     return JointSolution(
@@ -386,6 +404,16 @@ def solve_joint_batch(batch: ProblemBatch,
     ``"fused"``.  Padded device slots come back with ``a = power = 0`` and
     weigh 0 in every objective.  ``bit_menu`` (``"fused"`` only) runs the
     joint bit/power/selection solve and fills ``BatchSolution.bits``.
+
+    ``sanitize=True`` runs ``WirelessFLProblem.sanitize`` over the
+    stacked leaves first: unhealthy devices deselect themselves instead
+    of poisoning the solve; a healthy batch is unchanged.  ``init`` (a
+    :class:`WarmStart` or ``(a0, p0)`` pair shaped like the solution,
+    typically a previous ``BatchSolution.resume``) warm-starts the two
+    iterative methods; all-zero rows mean "no previous state" and run
+    exactly cold.  Solutions do not depend on it, only ``inner_iters``
+    does.  ``"optimal"``, ``"kernel"`` and the fixed-trip
+    ``"fused_kernel"`` have nothing to warm-start and reject ``init``.
     """
     if method not in ("alternating", "fused", "optimal", "kernel",
                       "fused_kernel"):
@@ -402,9 +430,18 @@ def solve_joint_batch(batch: ProblemBatch,
             "silently ignore the per-device bits leaf; use method='fused' "
             "(or 'alternating'/'optimal') for bit-scaled problems")
     if sanitize:
-        _not_in_this_slice("sanitize=True", "the fault-handling slice")
+        prob, _ = batch.problem.sanitize()
+        batch = dataclasses.replace(batch, problem=prob)
     if init is not None:
-        _not_in_this_slice("init= (warm starts)", "the serving slice")
+        if method not in ("alternating", "fused"):
+            raise ValueError(
+                f"init warm-starts the iterative methods only; "
+                f"method={method!r} computes its solution in a fixed "
+                "number of steps and would silently ignore it")
+        shape = batch.mask.shape + tuple(batch.problem.fading.shape[2:]
+                                         if batch.problem.fading is not None
+                                         else ())
+        init = WarmStart(*(_f32(x, shape, batch.device) for x in init))
     if method not in ("alternating", "fused", "fused_kernel") and faithful_eq13_typo:
         raise ValueError(
             f"faithful_eq13_typo only applies to the Algorithm-2 methods "
@@ -436,7 +473,7 @@ def solve_joint_batch(batch: ProblemBatch,
         sol = _solve_fused(batch, power_solver=power_solver,
                            faithful_eq13_typo=faithful_eq13_typo, eps=eps,
                            max_iters=max_iters, chunk_elements=chunk_elements,
-                           shard=shard, bit_menu=bit_menu)
+                           shard=shard, bit_menu=bit_menu, init=init)
     elif method == "optimal":
         a, p = optimal_elements(batch_elements(batch), n_bisect=N_BISECT,
                                 **_constants(batch.problem))
@@ -444,5 +481,5 @@ def solve_joint_batch(batch: ProblemBatch,
     else:
         sol = _solve_alternating(batch, power_solver=power_solver,
                                  faithful_eq13_typo=faithful_eq13_typo,
-                                 eps=eps, max_iters=max_iters)
+                                 eps=eps, max_iters=max_iters, init=init)
     return _mask_solution(sol, batch.mask)

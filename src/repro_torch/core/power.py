@@ -130,6 +130,17 @@ def energy_gate_elements(a, lam, emax, ec) -> torch.Tensor:
     return lam <= h + 1e-9
 
 
+def element_warm_lambda(a0, p0, pg, bw, *, s_bits,
+                        lam_floor: float = 1e-3) -> torch.Tensor:
+    """Per-element Dinkelbach seed from a previous solution ``(a0, p0)``:
+    the objective (9a) at the previous powers on the *current* channel,
+    lam0 = a0 P0 T(P0).  Elements with no usable previous state (a0 = 0
+    or P0 = 0: padded slots, newly admitted devices) take the cold
+    constant ``lam_floor``, so an all-zero state starts exactly cold."""
+    lam = _element_lam(a0, p0, pg, bw, s_bits=s_bits)
+    return torch.where((a0 > 0) & (p0 > 0) & (lam > 0), lam, lam_floor)
+
+
 # -------------------------------------------------------- problem level
 
 def _element_operands(problem: WirelessFLProblem, a: torch.Tensor):

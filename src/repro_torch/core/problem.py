@@ -216,6 +216,86 @@ class WirelessFLProblem:
         a_ok = (av >= -1e-12) & (av <= 1 + rtol)
         return energy_ok & time_ok & p_ok & a_ok
 
+    # ------------------------------------------------ boundary hardening
+
+    def health_mask(self, xp=torch):
+        """Per-device boolean mask, True where every field is well-formed.
+
+        A device is unhealthy when any of its constraint data is
+        non-finite, when a strictly positive quantity (distance,
+        bandwidth, fading gain, bits, dataset size, CPU parameters) is
+        <= 0, or when a non-negative one (energy budget, weight,
+        interference) is negative.  Works on ``[N]`` and on stacked
+        ``[B, N]`` leaves; per-round leaves reduce over their trailing
+        round axis (one bad round marks the device).
+
+        ``xp=np`` evaluates on the host and returns a numpy array (the
+        serving submit path checks every request without a device
+        launch); ``xp=torch`` returns a bool tensor on the problem's
+        device.
+        """
+        if xp is np:
+            def arr(x):
+                return x.detach().cpu().numpy()
+        else:
+            def arr(x):
+                return x
+
+        positive = ("distance_m", "bandwidth_hz", "dataset_size",
+                    "cycles_per_sample", "cpu_hz")
+        nonneg = ("energy_budget_j", "weights")
+        ok = None
+        for name in positive + nonneg:
+            x = arr(getattr(self, name))
+            good = xp.isfinite(x) & (x > 0 if name in positive else x >= 0)
+            ok = good if ok is None else ok & good
+        rank = self.distance_m.ndim
+        for name, positive_leaf in (("fading", True), ("interference", False),
+                                    ("bits", True)):
+            if getattr(self, name) is None:
+                continue
+            x = arr(getattr(self, name))
+            good = xp.isfinite(x) & (x > 0 if positive_leaf else x >= 0)
+            if x.ndim > rank:
+                good = good.all(-1)
+            ok = ok & good
+        return ok
+
+    def sanitize(self, health=None) -> tuple["WirelessFLProblem", torch.Tensor]:
+        """Replace unhealthy device rows with :data:`NEUTRAL_FILLS`.
+
+        Returns ``(problem, health)``.  Sanitised devices deselect
+        themselves in every solver (a zero energy budget gives a* = 0,
+        P* = 0); healthy rows pass through bit for bit.  ``health``
+        (a bool tensor or numpy array) defaults to :meth:`health_mask`.
+        """
+        if health is None:
+            health = self.health_mask()
+        health = torch.as_tensor(health, dtype=torch.bool, device=self.device)
+        repl = {name: torch.where(health, getattr(self, name), fill)
+                for name, fill in NEUTRAL_FILLS.items()}
+        rank = self.distance_m.ndim
+        for name, fill in (("fading", _FADING_FILL),
+                           ("interference", _INTERFERENCE_FILL),
+                           ("bits", _BITS_FILL)):
+            x = getattr(self, name)
+            if x is not None:
+                h = health[..., None] if x.ndim > rank else health
+                repl[name] = torch.where(h, x, fill)
+        return dataclasses.replace(self, **repl), health
+
+    def validate(self) -> None:
+        """Raise ``ValueError`` naming the unhealthy devices, if any: the
+        strict counterpart of :meth:`sanitize`."""
+        health = self.health_mask(xp=np)
+        if not health.all():
+            bad = np.flatnonzero(~health.reshape(-1))
+            raise ValueError(
+                f"{bad.size} device slot(s) carry non-finite or "
+                f"out-of-domain constraint data (flat indices "
+                f"{bad[:8].tolist()}{'...' if bad.size > 8 else ''}); "
+                "sanitize() degrades them to self-deselecting no-ops")
+
 
 def _bcast_like(x: torch.Tensor, rank: int) -> torch.Tensor:
     """Broadcast a per-device ``[N]`` vector to ``[N, 1]`` when the

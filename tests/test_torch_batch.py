@@ -356,13 +356,17 @@ def test_argument_checks():
         (dict(method="fused_kernel", power_solver="dinkelbach"), ValueError,
          "analytic"),
         (dict(method="fused", mesh=object()), ValueError, "one device"),
-        (dict(method="fused", sanitize=True), NotImplementedError, "sanitize"),
-        (dict(method="alternating", init=(0.0, 0.0)), NotImplementedError,
-         "init"),
+        (dict(method="optimal", init=(0.0, 0.0)), ValueError, "init"),
+        (dict(method="kernel", init=(0.0, 0.0)), ValueError, "init"),
+        (dict(method="fused_kernel", init=(0.0, 0.0)), ValueError, "init"),
     ]
     for kw, exc, match in refusals:
         with pytest.raises(exc, match=match):
             batch.solve_joint_batch(tb, **kw)
+    # warm starts and the health boundary run (tests/test_torch_warm.py)
+    for kw in (dict(method="fused", sanitize=True),
+               dict(method="alternating", init=(0.0, 0.0))):
+        assert batch.solve_joint_batch(tb, **kw).a.shape == tb.mask.shape
     with pytest.raises(ValueError, match="bits"):
         batch.solve_joint_batch(tbits, method="kernel")
     sol = batch.solve_joint_batch(tb, method="fused", shard=False)

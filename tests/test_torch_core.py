@@ -354,10 +354,9 @@ def test_unported_options_raise():
     p = problem.sample_problem(0, 8, device="cpu")
     with pytest.raises(ValueError, match="bit_menu"):
         alternating.solve_joint_fused(p, bit_menu=(8, 64))
-    with pytest.raises(NotImplementedError, match="init"):
-        alternating.solve_joint(p, init=(p.weights, p.weights))
-    with pytest.raises(NotImplementedError, match="sanitize"):
-        alternating.solve_joint_fused(p, sanitize=True)
+    # warm starts and sanitize run now (tests/test_torch_warm.py)
+    assert alternating.solve_joint(p, init=(p.weights, p.weights)).a.shape == (8,)
+    assert alternating.solve_joint_fused(p, sanitize=True).a.shape == (8,)
     with pytest.raises(ValueError, match="one device"):
         alternating.solve_joint_fused(p, mesh=object())
     with pytest.raises(ValueError, match="per_round"):

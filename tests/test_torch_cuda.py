@@ -580,3 +580,90 @@ def test_batched_server_serves_mamba_on_the_card(dev):
                     max_new=5) for i in range(3)]
     stats = BatchedServer(cfg, params, 2, cache_len=69, device=dev).run(reqs)
     assert all(len(r.out) == 5 for r in reqs) and stats["tokens"] == 15
+
+
+# ------------------------------------------------- the fleet control plane
+# The service and the coupled solve launch no kernel of their own (their
+# methods are "fused" and "alternating"); these tests hold the card's run
+# against the port's own CPU run of the same seeded input: the batch log
+# and the non-iteration counters exactly (under a virtual clock the close
+# decisions depend on the trace alone), a* and P* at 1e-5 (P* as atol =
+# rtol), as the solves are held.
+
+def _served(device, method, power_solver, kind):
+    from repro_torch.serve import (FleetControlService, ServiceConfig,
+                                   bursty_trace, drive, make_cells,
+                                   poisson_trace)
+    cells = make_cells(3, n_devices=40, n_rounds=4, seed=11, device=device)
+    if kind == "poisson":
+        trace = poisson_trace(cells, rate_hz=400.0, n_requests=36, seed=3,
+                              deadline_s=0.05)
+    else:
+        trace = bursty_trace(cells, burst_rate_hz=2000.0, burst_len=8,
+                             n_bursts=4, idle_s=0.02, seed=3,
+                             deadline_s=0.05)
+    svc = FleetControlService(ServiceConfig(
+        max_batch=4, cost_smoothing=0.0, record_batches=True, method=method,
+        power_solver=power_solver), device=device)
+    return svc, drive(svc, trace, clock="virtual").responses
+
+
+@pytest.mark.parametrize("method,power_solver,kind", [
+    ("fused", None, "poisson"), ("fused", "dinkelbach", "bursty"),
+    ("alternating", None, "poisson")])
+def test_service_on_the_card_matches_the_cpu_run(dev, method, power_solver,
+                                                 kind):
+    svc, got = _served(dev, method, power_solver, kind)
+    cpu, want = _served(torch.device("cpu"), method, power_solver, kind)
+    assert svc.batch_log == cpu.batch_log and len(svc.batch_log) > 1
+    counts, cpu_counts = (s.stats.counter_summary() for s in (svc, cpu))
+    for key in ("outer_iters", "inner_iters"):
+        counts.pop(key), cpu_counts.pop(key)
+    assert counts == cpu_counts
+    want = {r.seq: r for r in want}
+    for r in got:
+        w = want[r.seq]
+        assert r.warm_started == w.warm_started and r.converged
+        torch.testing.assert_close(torch.from_numpy(r.solution.a),
+                                   torch.from_numpy(w.solution.a),
+                                   rtol=0, atol=SOLVE_TOL)
+        torch.testing.assert_close(torch.from_numpy(r.solution.power),
+                                   torch.from_numpy(w.solution.power),
+                                   rtol=SOLVE_TOL, atol=SOLVE_TOL)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("metro_coupled", dict(n_cells=8, n_devices=64)),
+    ("interference_grid", dict(n_cells=16, n_devices=32)),
+    ("metro_coupled", dict(n_cells=4, n_devices=16, coupling_gain=0.0,
+                           backhaul_fraction=None))])
+def test_solve_coupled_on_the_card_matches_the_cpu_run(dev, name, kw):
+    from repro_torch.core.multicell import solve_coupled
+    from repro_torch.core.scenarios import make_problem
+    mc = make_problem(name, seed=0, device=dev, **kw)
+    sol = solve_coupled(mc)
+    cpu = solve_coupled(make_problem(name, seed=0, device="cpu", **kw))
+    assert sol.converged and sol.outer_iters == cpu.outer_iters
+    torch.testing.assert_close(sol.batch.a.cpu(), cpu.batch.a, rtol=0,
+                               atol=SOLVE_TOL)
+    torch.testing.assert_close(sol.batch.power.cpu(), cpu.batch.power,
+                               rtol=SOLVE_TOL, atol=SOLVE_TOL)
+    warm = solve_coupled(mc, init=sol.resume)
+    assert warm.outer_iters < sol.outer_iters or sol.outer_iters == 1
+    if kw.get("coupling_gain") == 0.0:          # the bitwise identity
+        plain = solve_joint_batch(mc.cells, method="fused")
+        assert torch.equal(sol.batch.a, plain.a)
+        assert torch.equal(sol.batch.power, plain.power)
+
+
+def test_chaos_drive_on_the_card_leaks_nothing(dev):
+    from repro_torch.serve import (FAULT_KINDS, FaultPlan, FleetControlService,
+                                   ServiceConfig, chaos_drive, make_cells,
+                                   poisson_trace)
+    cells = make_cells(3, n_devices=40, n_rounds=4, seed=11, device=dev)
+    trace = poisson_trace(cells, rate_hz=400.0, n_requests=40, seed=2)
+    svc = FleetControlService(ServiceConfig(cost_smoothing=0.0), device=dev)
+    rep = chaos_drive(svc, trace, FaultPlan(kinds=FAULT_KINDS, seed=2,
+                                            fault_rate=0.5, device_rate=0.25))
+    assert len(rep.report.responses) == len(trace)
+    assert rep.nan_escapes == 0 and rep.n_unhealthy_devices > 0
