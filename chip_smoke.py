@@ -64,7 +64,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    solve; 16 ``dense_1k`` cells in bucket 1,024; and a chaos drive over
    every fault kind with no non-finite answer.  No kernel lies on this
    path;
-10. print the kernel record, the card, and the last line
+10. drive the drift-aware closed loop (``repro_torch.fl.closed_loop``) at
+   drifting_metro's registered size (N = 100, K = 20, coherence 0.9): all
+   six strategies over one seed (cut from two for time) with the paper's
+   CNN, the joint-bits sweep's every server sum through the quantised
+   kernel; the card
+   against the port's own CPU run (control trace 1e-5, iteration counts
+   equal, every strategy's accounting 1e-5 relative); one profiled round
+   of the quantised sweep; the same grid under a fault plan, its control
+   pass crashed after round 9 and resumed on a fresh service bit for bit;
+   the quantised kernel on that faulted sweep's own operands of one round;
+   and the entry points ``closed_loop_demo``, ``fading_rounds``,
+   ``quickstart`` and ``compression_study`` on the card;
+11. print the kernel record, the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero without a CUDA device and
@@ -73,12 +85,14 @@ when run outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -175,6 +189,17 @@ NOT_WHOLE = 7.9999995
 # per round (lr * max coef * max|g| / L, with |g| under 10 for the CNN)
 FLIP_SHARE = 1e-3
 GRAD_BOUND = 10.0
+# phase [10]: the closed loop at drifting_metro's registered size
+CLOSED_LOOP = dict(n_devices=100, n_rounds=20, coherence=0.9)
+# one seed, cut from the issue's two: at two the port's CPU run of the
+# same grid alone took 68.8 s on the chip machine's host (PERF.md, PR 23)
+CLOSED_LOOP_SEEDS = 1
+CLOSED_LOOP_FAULTS = dict(seed=3, device_rate=0.25, drop_rate=0.3)
+CLOSED_LOOP_CRASH = 10      # the control pass raises after round 9 (index)
+CLOSED_LOOP_TOL = 1e-5      # card against CPU: the solver tolerance
+CLOSED_LOOP_GATED = ("expected_participants", "mean_participants", "mean_bits",
+                     "total_energy_j", "completion_time_s")
+CLOSED_LOOP_OPERANDS_ROUND = 10    # the round whose kernel-4 operands are held
 
 
 def fail(msg: str) -> None:
@@ -1907,6 +1932,331 @@ def run_mamba2(torch, dev, cfg, params) -> dict:
     return dict(launches=launches)
 
 
+# ----------------------------------------------------------- closed loop
+
+@contextlib.contextmanager
+def wrapped(module, name: str, wrapper):
+    """``module.name`` replaced by ``wrapper(original)`` inside the block."""
+    orig = getattr(module, name)
+    setattr(module, name, wrapper(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def closed_loop_grid(torch, dev, cfg, record: dict, operands_round=None):
+    """``run_closed_loop_grid`` on ``dev`` with its control trace, the
+    quantised sweep's arguments and (at ``operands_round``) one round's
+    operands of the quantised eq.-4 sum recorded in ``record``.  The
+    recording only keeps references: the path runs as it does alone."""
+    from repro_torch.fl import closed_loop as cl
+    from repro_torch.fl import scan_engine
+    from repro_torch.kernels.masked_aggregate import ops as agg_ops
+
+    def solve_rounds(orig):
+        def run(problem, *a, **kw):
+            record["problem"] = problem
+            record["trace"] = orig(problem, *a, **kw)
+            return record["trace"]
+        return run
+
+    def sweep(orig):
+        def run(plans, *a, **kw):
+            if plans.bits is not None:
+                record["qsweep"] = (plans, a, kw)
+            return orig(plans, *a, **kw)
+        return run
+
+    def quantized(orig):
+        calls = [0]
+
+        def run(gstack, coef, bits, *, generator=None, noise=None):
+            if calls[0] == operands_round:
+                # the noise the wrapper would draw from these generators
+                noise = agg_ops.uniform_noise_like(gstack, generator)
+                record["operands"] = (gstack, coef, bits, noise)
+                generator = None
+            calls[0] += 1
+            return orig(gstack, coef, bits, generator=generator, noise=noise)
+        return run
+
+    with wrapped(cl, "solve_rounds", solve_rounds), \
+            wrapped(cl, "run_fl_sweep", sweep), \
+            wrapped(scan_engine, "quantized_aggregate_pytree", quantized):
+        return cl.run_closed_loop_grid(cfg, device=dev)
+
+
+def print_grid(out: dict, label: str, tag: str) -> None:
+    from repro_torch.fl.closed_loop import format_closed_loop_table
+    svc, sec = out["control"]["service"], out["seconds"]
+    for line in format_closed_loop_table(out).splitlines():
+        print(f"  {line}")
+    print(f"  {label}: control plane warm share {svc['warm_fraction']:.4f}, "
+          f"inner iters {out['control']['inner_iters']}, outer iters "
+          f"{out['control']['outer_iters']}, p50 "
+          f"{svc['p50_latency_s'] * 1e3:.3f} ms, p99 "
+          f"{svc['p99_latency_s'] * 1e3:.3f} ms {tag}")
+    print(f"  {label}: wall {sum(sec.values()):.3f} s = control "
+          f"{sec['control']:.3f} + planning {sec['planning']:.3f} + sweep "
+          f"{sec['sweep']:.3f} + quantised sweep {sec['quantized_sweep']:.3f} "
+          f"s {tag}")
+
+
+def check_grid(out: dict, label: str, trained: bool = True) -> None:
+    """Every strategy reported, every value finite, accuracy in [0, 1];
+    with ``trained``, every strategy had participants."""
+    import numpy as np
+    from repro_torch.fl.closed_loop import CLOSED_LOOP_STRATEGIES
+    check(list(out["strategies"]) == list(CLOSED_LOOP_STRATEGIES),
+          f"{label}: strategies {list(out['strategies'])}")
+    for name, row in out["strategies"].items():
+        check(all(np.isfinite(v) for v in row.values())
+              and 0.0 <= row["final_acc"] <= 1.0,
+              f"{label}: {name} reported {row}")
+        check(not trained or row["mean_participants"] > 0,
+              f"{label}: {name} trained nobody")
+
+
+def one_round(plans, cfg):
+    """A stacked plan and its config cut to the first round."""
+    per_round = ("probs", "tx_time", "round_energy", "batch_idx", "masks",
+                 "drops", "bits")
+    return (dataclasses.replace(plans, **{
+        f: getattr(plans, f)[:, :1] for f in per_round
+        if getattr(plans, f) is not None}),
+        dataclasses.replace(cfg, n_rounds=1, eval_every=1))
+
+
+def check_closed_loop_operands(torch, record: dict, tag: str) -> None:
+    """Kernel 4 on the faulted joint_bits sweep's own operands of one
+    round: the stacked client gradients, the coefficients (zero where an
+    upload was attempted and lost) and the width table, against its
+    plain version with the same noise, and both timed."""
+    from repro_torch.kernels.masked_aggregate import ops as agg_ops
+    from repro_torch.kernels.masked_aggregate import ref as agg_ref
+    from repro_torch.tree import tree_leaves
+    gstack, coef, bits, noise = record["operands"]
+    plans = record["qsweep"][0]
+    k = CLOSED_LOOP_OPERANDS_ROUND
+    attempted = plans.masks[:, k].to(coef.device)
+    lost = attempted & plans.drops[:, k].to(coef.device)
+    check(int(lost.sum()) > 0 and bool((coef[lost] == 0).all())
+          and bool((coef[attempted & ~lost] > 0).all()),
+          "the faulted round's coefficients are not zero exactly where "
+          "uploads were lost")
+    t, n = coef.shape
+    levels = agg_ref.quantizer_levels(bits).contiguous()
+    ops_ = []
+    for g, u in zip(tree_leaves(gstack), tree_leaves(noise)):
+        flat = g.reshape(t, n, -1).contiguous()
+        ops_.append((flat, coef.contiguous(), u.reshape(t, n, -1).contiguous(),
+                     agg_ops.row_scale(flat, levels), levels))
+    err = 0.0
+    for op in ops_:
+        out = agg_ops.quantized_masked_aggregate_batched(*op)
+        plain = agg_ref.quantized_masked_aggregate_ref(*op)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), "non-finite kernel-4 output")
+        err = max(err, float((out - plain).abs().max()))
+    ms = cuda_ms(torch, lambda: [agg_ops.quantized_masked_aggregate_batched(*op)
+                                 for op in ops_], 20)
+    plain_ms = cuda_ms(torch, lambda: [agg_ref.quantized_masked_aggregate_ref(*op)
+                                       for op in ops_], 3)
+    d = sum(op[0].shape[-1] for op in ops_)
+    # the function's bound: out[t, :] = sum_i coef[t, i] Q(g[t, i, :]) needs
+    # every coefficient, but the rows, scales, widths and noise only of the
+    # clients whose coefficient is nonzero
+    live = int((coef != 0).sum())
+    b_ms, b_by = bound_ms(4 * (t * n * len(ops_) + 2 * live * d
+                               + 2 * live * len(ops_) + t * d),
+                          QUANT_OPS * live * d)
+    dense_ms, _ = bound_ms(4 * (2 * t * n * d + 3 * t * n * len(ops_) + t * d),
+                           QUANT_OPS * t * n * d)
+    widths = {int(b): int((bits == b).sum()) for b in bits.unique().tolist()}
+    print(f"  kernel 4 on the faulted joint_bits round {k}'s operands (T={t}, "
+          f"N={n}, 8 leaves, widths {widths}, {int(lost.sum())} uploads lost "
+          f"with coefficient 0, {live} survivors): max|kernel - plain| = "
+          f"{err:.3e} (tol {QUANT_TOL:g}); kernel {ms:.6f} ms, plain "
+          f"{plain_ms:.6f} ms; the function's bound {b_ms:.6f} ms ({b_by}, "
+          f"the {live} rows with a nonzero coefficient), kernel at "
+          f"{b_ms / ms:.3f} of it; the bound over all {t * n} rows, which the "
+          f"kernel reads, {dense_ms:.6f} ms {tag}")
+    check(err <= QUANT_TOL, f"kernel 4 on the closed loop's operands: error "
+          f"{err} > {QUANT_TOL}")
+
+
+def run_closed_loop(torch, dev, card_line: str) -> dict:
+    """The drift-aware closed loop (``repro_torch.fl.closed_loop``) at
+    drifting_metro's registered size, all six strategies, the paper's CNN:
+    on the card with every launch count zeroed just before it, against
+    the port's own CPU run of the same config, under a fault plan with a
+    crash after round 9 and a resume on a fresh service, kernel 4 on the
+    faulted sweep's operands, and the four entry points of the slice."""
+    import numpy as np
+    from repro_torch import (closed_loop_demo, compression_study, fading_rounds,
+                             quickstart)
+    from repro_torch.fl import closed_loop as cl
+    from repro_torch.fl.scan_engine import run_fl_sweep
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serve import FaultPlan, FleetControlService
+    tag = f"[{card_line}]"
+    t_phase = time.perf_counter()
+    cfg = cl.ClosedLoopConfig(**CLOSED_LOOP, n_seeds=CLOSED_LOOP_SEEDS)
+    print(f"  drifting_metro N={cfg.n_devices} K={cfg.n_rounds} coherence "
+          f"{cfg.coherence}, {len(cl.CLOSED_LOOP_STRATEGIES)} strategies x "
+          f"{cfg.n_seeds} seeds, {cfg.n_train} training images, the "
+          f"199,213-parameter CNN")
+
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    card_rec: dict = {}
+    card = closed_loop_grid(torch, dev, cfg, card_rec)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    print_grid(card, "card", tag)
+    print(f"  launches on the closed loop's path: {launches}")
+    check_grid(card, "card")
+    want = 8 * cfg.n_rounds
+    check(launches["quantized_masked_aggregate"] == want,
+          f"quantized_masked_aggregate launched "
+          f"{launches['quantized_masked_aggregate']} times, not {want}")
+
+    t0 = time.perf_counter()
+    cpu_rec: dict = {}
+    cpu = closed_loop_grid(torch, torch.device("cpu"), cfg, cpu_rec)
+    t_cpu = time.perf_counter() - t0
+    a_err = float((card_rec["trace"].a - cpu_rec["trace"].a).abs().max())
+    p_err = float((card_rec["trace"].power - cpu_rec["trace"].power).abs().max())
+    counts = [tuple(o["control"][k] for k in ("warm_rounds", "inner_iters",
+                                              "outer_iters"))
+              for o in (card, cpu)]
+    rel = {k: max(abs(card["strategies"][s][k] - cpu["strategies"][s][k])
+                  / max(abs(cpu["strategies"][s][k]), 1e-30)
+                  for s in cpu["strategies"]) for k in CLOSED_LOOP_GATED}
+    sec = cpu["seconds"]
+    print(f"  the CPU run: control {sec['control']:.3f} + planning "
+          f"{sec['planning']:.3f} + sweep {sec['sweep']:.3f} + quantised sweep "
+          f"{sec['quantized_sweep']:.3f} s")
+    print(f"  card against the CPU run ({t_cpu:.1f} s on the host): control "
+          f"trace max|a| {a_err:.3e}, max|P*| {p_err:.3e}; (warm, inner, "
+          f"outer) {counts[0]} vs {counts[1]}; worst relative "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+          + "; final_acc " + ", ".join(
+              f"{s} {card['strategies'][s]['final_acc']:.4f}/"
+              f"{cpu['strategies'][s]['final_acc']:.4f}"
+              for s in cpu["strategies"]))
+    check(a_err <= CLOSED_LOOP_TOL and p_err <= CLOSED_LOOP_TOL,
+          f"the card's control trace differs from the CPU's ({a_err}, {p_err})")
+    check(counts[0] == counts[1], f"control counts differ: {counts}")
+    for k, v in rel.items():
+        check(v <= CLOSED_LOOP_TOL, f"{k} differs from the CPU run by {v}")
+
+    plans, args, kw = card_rec["qsweep"]
+    plan1, cfg1 = one_round(plans, args[2])
+
+    def qround(_k):
+        run_fl_sweep(plan1, args[0], args[1], cfg1, args[3], **kw)
+    qround(0)
+    profile_run(torch, f"closed loop: one round of the quantised sweep "
+                f"({plans.probs.shape[0]} trajectories, incl. one evaluation)",
+                qround, 1, "round", "quantized_masked_aggregate")
+
+    # faults and a crash: the control pass dies after round 9, and the
+    # faulted grid resumes it from the checkpoint on a fresh service
+    fcfg = dataclasses.replace(cfg, fault_plan=FaultPlan(**CLOSED_LOOP_FAULTS))
+    problem = cl._faulted_problem(fcfg)
+    whole = cl.solve_rounds(problem, FleetControlService(fcfg.service,
+                                                         device=dev))
+    with tempfile.TemporaryDirectory() as ckpt:
+        svc = FleetControlService(fcfg.service, device=dev)
+        orig, calls = svc.run, [0]
+
+        def crashy(reqs=None):
+            if calls[0] >= CLOSED_LOOP_CRASH:
+                raise RuntimeError("simulated crash")
+            calls[0] += 1
+            return orig(reqs)
+        svc.run = crashy
+        try:
+            cl.solve_rounds(problem, svc, checkpoint_dir=ckpt)
+            fail("the crashing control pass did not crash")
+        except RuntimeError as exc:
+            check("simulated crash" in str(exc), f"unexpected error {exc}")
+        frec: dict = {}
+        faulted = closed_loop_grid(
+            torch, dev, dataclasses.replace(fcfg, checkpoint_dir=ckpt), frec,
+            operands_round=CLOSED_LOOP_OPERANDS_ROUND)
+    resumed = frec["trace"]
+    same = (torch.equal(resumed.a, whole.a)
+            and torch.equal(resumed.power, whole.power))
+    counts = [(t.warm_rounds, t.inner_iters, t.outer_iters)
+              for t in (resumed, whole)]
+    print_grid(faulted, "faulted", tag)
+    print(f"  faults {fcfg.fault_plan}: {faulted['faults']['n_unhealthy_devices']} "
+          f"devices corrupted, {faulted['control']['service']['unhealthy_devices']} "
+          f"sanitised at submit; crash after round {CLOSED_LOOP_CRASH - 1}, "
+          f"resumed on a fresh service solving "
+          f"{resumed.service.stats.n_solved} rounds: trace equal to the "
+          f"uninterrupted card run {same}, (warm, inner, outer) {counts[0]} "
+          f"vs {counts[1]}")
+    check_grid(faulted, "faulted")
+    check(same and counts[0] == counts[1],
+          "the resumed control trace differs from the uninterrupted one")
+    check(resumed.service.stats.n_solved == fcfg.n_rounds - CLOSED_LOOP_CRASH,
+          "the resume solved the wrong number of rounds")
+    check(faulted["faults"]["n_unhealthy_devices"] > 0, "no device corrupted")
+    check_closed_loop_operands(torch, frec, tag)
+    t_grid = time.perf_counter() - t_phase
+
+    def driven(name, run):
+        """``run()`` with the launch counts zeroed just before it; its
+        result, its seconds and the kernels it launched."""
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        runs[name] = (time.perf_counter() - t0,
+                      {k: v for k, v in cuda_lib.LAUNCHES.items() if v})
+        return res
+
+    runs: dict = {}
+    demo = driven("closed_loop_demo", lambda: closed_loop_demo.main([]))
+    check_grid(demo, "closed_loop_demo", trained=False)
+    driven("fading_rounds", lambda: fading_rounds.main([]))
+    qs = driven("quickstart", lambda: quickstart.main([]))
+    check(np.isfinite(qs["history"].eval_acc).all()
+          and qs["history"].participants.sum() > 0, "quickstart trained nobody")
+    # compression_study at its reference sizes (3 x 150 rounds, about
+    # 12 s on the card) while phase [10] stays within its 60 s budget
+    budget = 60.0 - (time.perf_counter() - t_phase)
+    study_args = [] if budget >= 15.0 else ["--rounds", "30", "--eval-every", "10"]
+    with tempfile.TemporaryDirectory() as out_dir:
+        study = driven("compression_study", lambda: compression_study.main(
+            study_args + ["--out", str(Path(out_dir) / "compression_study.json")]))
+    check(sorted(study) == [4, 8, 32] and all(
+        math.isfinite(r["final_acc"]) for r in study.values()),
+        "compression_study failed")
+    # its 32-bit width sums through kernel 3 and its 8 and 4 through kernel
+    # 4, one launch a leaf in each round that has a participant
+    study_rounds = 150 if not study_args else 30
+    got = runs["compression_study"][1]
+    n3, n4 = got.get("masked_aggregate", 0), got.get("quantized_masked_aggregate", 0)
+    check(0 < n3 <= 8 * study_rounds and n3 % 8 == 0
+          and 0 < n4 <= 2 * 8 * study_rounds and n4 % 8 == 0,
+          f"compression_study launched {got}: kernel 3 and kernel 4 not both "
+          f"on its path, 8 leaves a round")
+    print("  entry points, each with the launch counts zeroed just before it: "
+          + "; ".join(f"{name} {sec:.1f} s, launches {counts}"
+                      for name, (sec, counts) in runs.items())
+          + f" (compression_study "
+          f"{'at its reference sizes' if not study_args else 'cut to ' + ' '.join(study_args)}) {tag}")
+    print(f"  phase [10] {time.perf_counter() - t_phase:.1f} s (grids, "
+          f"checks and profile {t_grid:.1f} s)")
+    return dict(launches=launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=None,
@@ -2007,6 +2357,9 @@ def main() -> int:
     run_control_plane(torch, dev, card_line)
     print(f"  phase [9] {time.perf_counter() - t9:.1f} s")
 
+    print("[10] the drift-aware closed loop" + at(), flush=True)
+    run_closed_loop(torch, dev, card_line)
+
     sources = {"fused_solve": ("src/repro_torch/csrc/selection_solve.cu",
                                "src/repro/kernels/selection_solve/kernel.py:143"),
                "selection_solve": ("src/repro_torch/csrc/selection_solve.cu",
@@ -2024,7 +2377,7 @@ def main() -> int:
                     launches=out["launches"][name], max_abs_err=errs[name],
                     **rec[name])
                for name, (src, rep) in sources.items()]
-    print(f"[10] done in {time.perf_counter() - t_start:.1f} s; peak device "
+    print(f"[11] done in {time.perf_counter() - t_start:.1f} s; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(card_line)

@@ -39,6 +39,8 @@ from repro_torch.core.schedulers import (
     SCHEDULERS,
     DeterministicScheduler,
     EquallyWeightedScheduler,
+    GreedyChannelScheduler,
+    LyapunovScheduler,
     ParticipationDraw,
     ProbabilisticScheduler,
     SchedulerState,
@@ -64,6 +66,7 @@ __all__ = [
     "PowerSolution", "analytic_power", "dinkelbach_power", "energy_bound_ok",
     "GRAD_SIZE_BITS_FP32", "WirelessFLProblem", "sample_problem",
     "SCHEDULERS", "DeterministicScheduler", "EquallyWeightedScheduler",
+    "GreedyChannelScheduler", "LyapunovScheduler",
     "ParticipationDraw", "ProbabilisticScheduler", "SchedulerState",
     "UniformScheduler", "make_scheduler", "optimal_selection",
     "ProblemBatch", "BatchSolution", "stack_problems",

@@ -178,6 +178,14 @@ class WirelessFLProblem:
         p = power if power.ndim >= t.ndim else power[:, None]
         return p * t
 
+    def round_energy(self, power: torch.Tensor) -> torch.Tensor:
+        """E_ik = E^c_i + E^u_ik  (eq. 6)."""
+        eu = self.upload_energy(power)
+        ec = self.compute_energy()
+        if eu.ndim > ec.ndim:
+            ec = ec[:, None]
+        return ec + eu
+
     def p_min(self, a: torch.Tensor) -> torch.Tensor:
         """Minimum power meeting the time constraint (7c) at probability a:
         P^min_ik = (2^{a S / (B_i tau)} - 1) / path_gain, the exponent

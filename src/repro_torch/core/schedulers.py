@@ -14,14 +14,21 @@ powers and the aggregation weights alpha_i of the server update (eq. 4):
 * **uniform** [McMahan et al.]: M clients uniformly at random at P^max.
 * **equally_weighted** [Nishio & Yonetani]: binary selection with equal
   objective and aggregation weights.
+* **greedy_channel**: per-round top-M devices by instantaneous path gain
+  at the minimum tau-feasible power, the channel-aware baseline.
+* **lyapunov**: virtual-queue drift-plus-penalty scheduling: a per-device
+  energy-budget queue Q_i(k+1) = max(Q_i(k) + m_i E_ik - E^max_i, 0)
+  throttles devices whose realised energy overshoots their budget, and
+  round k selects the devices whose utility V w_i outweighs Q_i(k) E_ik.
 
 Random draws come from the ``torch.Generator`` the caller passes (the
 reference's ``jax.random`` streams cannot be reproduced; callers that need
 the reference's draws pass its masks to the FL engines).  The
 probabilistic scheduler's batched methods (``solve_batch``,
 ``precompute_batch``, ``sample_batch``) take a ``core.batch.ProblemBatch``.
-The channel-aware schedulers (greedy, Lyapunov) and warm starts come with
-later slices.
+The channel-aware pair (greedy_channel, lyapunov) produce per-round
+``[N, K]`` states on fading problems, which the engines and the closed
+loop (``repro_torch.fl.closed_loop``) consume round by round.
 """
 from __future__ import annotations
 
@@ -118,6 +125,10 @@ class ProbabilisticScheduler:
             alpha = alpha / torch.clamp(a, min=1e-6)
         return ParticipationDraw(mask=bernoulli_mask(generator, a), power=p,
                                  agg_weights=alpha, probs=a)
+
+    def expected_participants(self, state: SchedulerState) -> torch.Tensor:
+        a = state.a if state.a.ndim == 1 else state.a.mean(dim=1)
+        return torch.sum(a)
 
     # ---- batched (multi-scenario) path ---------------------------------
     def solve_batch(self, batch: ProblemBatch, **kw) -> BatchSolution:
@@ -247,18 +258,112 @@ class EquallyWeightedScheduler:
         return _fixed_draw(state, k)
 
 
+def _tau_feasible_power(problem: WirelessFLProblem) -> torch.Tensor:
+    """Minimum power transmitting within tau at full participation:
+    clip(P^min(a=1), 0, P^max), [N] or [N, K] on a fading problem.
+    Devices whose P^min(1) exceeds P^max are clamped (they violate tau;
+    channel-aware selection avoids them)."""
+    ones = torch.ones((problem.n_devices,), dtype=torch.float32,
+                      device=problem.device)
+    return torch.clamp(problem.p_min(ones), 0.0, problem.p_max)
+
+
+@dataclasses.dataclass(frozen=True)
+class GreedyChannelScheduler:
+    """Channel-aware greedy: every round, the M devices with the best
+    instantaneous channel (highest path gain) transmit at the minimum
+    tau-feasible power.  It tracks the fading but ignores energy budgets
+    and data weights."""
+
+    m: int = 10
+
+    def precompute(self, problem: WirelessFLProblem) -> SchedulerState:
+        gain = problem.path_gain()                  # [N] or [N, K]
+        power = _tau_feasible_power(problem)
+        m = min(self.m, problem.n_devices)
+        if gain.ndim == 1:
+            a = _top_m_binary(gain, m)
+        else:
+            a = torch.stack([_top_m_binary(gain[:, j], m)
+                             for j in range(gain.shape[1])], dim=1)
+        return SchedulerState(a=a.to(torch.float32), power=power,
+                              agg_weights=_data_weights(problem))
+
+    def sample(self, state: SchedulerState, generator=None,
+               k: int = 0) -> ParticipationDraw:
+        return _fixed_draw(state, k)
+
+
+@dataclasses.dataclass(frozen=True)
+class LyapunovScheduler:
+    """Virtual-queue drift-plus-penalty scheduler (cf. Perazzone et al.,
+    arXiv:2201.07912).
+
+    Each device carries an energy-budget virtual queue
+
+        Q_i(k+1) = max(Q_i(k) + m_i(k) E_ik - E^max_i, 0),   Q_i(0) = 0,
+
+    where ``E_ik`` is the device's round-k energy at the minimum
+    tau-feasible power and ``E^max_i`` its per-round budget.  Round k
+    selects device i iff ``V w_i > Q_i(k) E_ik`` (float32, as written).
+    The recursion is deterministic given the channel trajectory, so the
+    whole schedule precomputes to a per-round binary ``[N, K]`` state;
+    ``n_rounds`` sets its length on a static problem.
+    """
+
+    v: float = 1.0
+    n_rounds: Optional[int] = None
+
+    def _energy_table(self, problem: WirelessFLProblem
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(power, e_rounds [N, K]): per-round full-participation energy."""
+        power = _tau_feasible_power(problem)
+        e = problem.round_energy(power)             # [N] or [N, K]
+        if e.ndim == 1:
+            k = self.n_rounds if self.n_rounds else max(problem.n_rounds, 1)
+            e = torch.broadcast_to(e[:, None], (e.shape[0], k))
+        return power, e
+
+    def _run(self, problem: WirelessFLProblem, e_rounds: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The queue recursion over the rounds: (queues [K+1, N] with
+        Q(0) = 0 first, selections [K, N] bool)."""
+        w, emax = problem.weights, problem.energy_budget_j
+        vw = torch.tensor(self.v, dtype=torch.float32, device=w.device) * w
+        q = torch.zeros((problem.n_devices,), dtype=torch.float32,
+                        device=w.device)
+        qs, sels = [q], []
+        for e_k in e_rounds.T:
+            sel = vw > q * e_k
+            q = torch.clamp(q + torch.where(sel, e_k, 0.0) - emax, min=0.0)
+            qs.append(q)
+            sels.append(sel)
+        return torch.stack(qs), torch.stack(sels)
+
+    def queue_trajectory(self, problem: WirelessFLProblem) -> torch.Tensor:
+        """Virtual-queue path [K+1, N] (Q(0) = 0 first row)."""
+        return self._run(problem, self._energy_table(problem)[1])[0]
+
+    def precompute(self, problem: WirelessFLProblem) -> SchedulerState:
+        power, e_rounds = self._energy_table(problem)
+        sels = self._run(problem, e_rounds)[1]      # [K, N]
+        return SchedulerState(a=sels.T.to(torch.float32), power=power,
+                              agg_weights=_data_weights(problem))
+
+    def sample(self, state: SchedulerState, generator=None,
+               k: int = 0) -> ParticipationDraw:
+        return _fixed_draw(state, k)
+
+
 SCHEDULERS = {
     "probabilistic": ProbabilisticScheduler,
     "deterministic": DeterministicScheduler,
     "uniform": UniformScheduler,
     "equally_weighted": EquallyWeightedScheduler,
+    "greedy_channel": GreedyChannelScheduler,
+    "lyapunov": LyapunovScheduler,
 }
 
 
 def make_scheduler(name: str, **kwargs):
-    if name not in SCHEDULERS:
-        raise ValueError(
-            f"unknown scheduler {name!r}: this slice ports "
-            f"{sorted(SCHEDULERS)}; greedy_channel and lyapunov come with "
-            "the closed-loop slice")
     return SCHEDULERS[name](**kwargs)

@@ -1,1 +1,2 @@
-"""Algorithm 3: the FL round engines and the paper's experiment grid."""
+"""Algorithm 3: the FL round engines, the paper's experiment grid and the
+drift-aware closed loop."""

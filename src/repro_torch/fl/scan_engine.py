@@ -21,8 +21,13 @@ every client's gradient is stochastically rounded to its width and
 summed by the ``quantized_masked_aggregate`` wrapper, with the noise of
 ``run_fl``'s stream (``engine.quantizer_generator``, seeded per
 trajectory seed and round).  ``plans_from_batch`` plans a registry
-ensemble from one batched solve.  Upload drops (``drops``) come with a
-later slice.
+ensemble from one batched solve.
+
+A plan with a ``drops`` table (``[K, N]`` bool, True where device i's
+round-k upload is lost; ``serve.faults.dropout_mask``) trains degraded:
+the round's time and energy are charged over the attempted mask, only
+the surviving uploads enter the eq.-4 sum, and ``participants`` counts
+the survivors.
 """
 from __future__ import annotations
 
@@ -37,6 +42,8 @@ from repro_torch.core.problem import WirelessFLProblem, div
 from repro_torch.core.schedulers import (
     DeterministicScheduler,
     EquallyWeightedScheduler,
+    GreedyChannelScheduler,
+    LyapunovScheduler,
     ProbabilisticScheduler,
     SchedulerState,
     UniformScheduler,
@@ -54,7 +61,8 @@ from repro_torch.tree import tree_map
 
 # participation-sampling modes
 MODE_BERNOULLI = 0   # probabilistic: m_i ~ Bernoulli(a_ik)
-MODE_FIXED = 1       # deterministic / equally-weighted: m_i = [a_ik > 0]
+MODE_FIXED = 1       # deterministic / equally-weighted / greedy /
+#                      Lyapunov: m_i = [a_ik > 0]
 MODE_UNIFORM = 2     # uniform: exactly M clients via a random permutation
 
 
@@ -64,8 +72,10 @@ class TrajectoryPlan:
 
     Per-round tables are ``[K, N]`` (round-major); ``stack_plans`` adds a
     leading trajectory axis to every field.  ``masks`` takes the place of
-    the reference's PRNG key: it holds the draws themselves.  ``bits``,
-    when present, switches the trajectory to the quantised uplink.
+    the reference's PRNG key: it holds the draws themselves.  ``drops``,
+    when present, marks the lost uploads (the attempt is still charged);
+    ``bits``, when present, switches the trajectory to the quantised
+    uplink.
     """
 
     probs: torch.Tensor         # [K, N] selection probabilities a_ik
@@ -79,6 +89,7 @@ class TrajectoryPlan:
     unbiased: torch.Tensor      # scalar bool: alpha_i / a_ik correction
     dataset_id: torch.Tensor    # scalar int64 row into the stacked datasets
     seed: torch.Tensor          # scalar int64 config.seed: the quantiser noise
+    drops: Optional[torch.Tensor] = None  # [K, N] bool, True = upload lost
     bits: Optional[torch.Tensor] = None  # [K, N] f32 uplink widths b_ik
 
     @property
@@ -113,13 +124,15 @@ def _scheduler_mode(scheduler) -> tuple[int, int, bool]:
     """(mode, m, unbiased) encoding of a scheduler's sampling behaviour."""
     if isinstance(scheduler, ProbabilisticScheduler):
         return MODE_BERNOULLI, 0, bool(scheduler.unbiased_aggregation)
-    if isinstance(scheduler, (DeterministicScheduler, EquallyWeightedScheduler)):
+    if isinstance(scheduler, (DeterministicScheduler, EquallyWeightedScheduler,
+                              GreedyChannelScheduler, LyapunovScheduler)):
         return MODE_FIXED, 0, False
     if isinstance(scheduler, UniformScheduler):
         return MODE_UNIFORM, int(scheduler.m), False
     raise TypeError(
         f"cannot plan scheduler {type(scheduler).__name__}; expected one of "
-        "Probabilistic/Deterministic/Uniform/EquallyWeighted")
+        "Probabilistic/Deterministic/Uniform/EquallyWeighted/"
+        "GreedyChannel/Lyapunov")
 
 
 def draw_masks(probs: torch.Tensor, mode: int, m: int,
@@ -157,6 +170,7 @@ def plan_trajectory(problem: WirelessFLProblem,
                     state: Optional[SchedulerState] = None,
                     dataset_id: int = 0,
                     masks: Optional[np.ndarray] = None,
+                    drops: Optional[np.ndarray] = None,
                     bits=None) -> TrajectoryPlan:
     """Build one trajectory's plan (on the host), mirroring ``run_fl``.
 
@@ -164,6 +178,10 @@ def plan_trajectory(problem: WirelessFLProblem,
     ([K, N] bool) replaces the draws from ``config.seed``'s generator.
     The minibatch schedule consumes ``np.random.default_rng(config.seed)``
     exactly as ``run_fl`` does (draws only on rounds with a participant).
+
+    ``drops`` is an optional ``[K, N]`` bool upload-loss table (True =
+    the round-k upload from device i never arrives).  The minibatch
+    schedule still draws on every round with an attempted upload.
 
     ``bits`` is an optional ``[N]`` or ``[N, K]`` uplink width table (e.g.
     ``solve_joint_fused(..., bit_menu=...)``'s choice); ``config.uplink_bits``
@@ -205,6 +223,13 @@ def plan_trajectory(problem: WirelessFLProblem,
             raise ValueError(f"masks must be [{k_rounds}, {n}], got "
                              f"{tuple(mask_t.shape)}")
 
+    drop_t = None
+    if drops is not None:
+        drop_t = torch.from_numpy(np.array(drops, dtype=bool))
+        if tuple(drop_t.shape) != (k_rounds, n):
+            raise ValueError(f"drops must be [{k_rounds}, {n}], got "
+                             f"{tuple(drop_t.shape)}")
+
     # minibatch schedule: same generator, same consumption order as run_fl
     rng = np.random.default_rng(config.seed)
     batch_idx = np.zeros((k_rounds, n, b), np.int64)
@@ -227,6 +252,7 @@ def plan_trajectory(problem: WirelessFLProblem,
         unbiased=torch.tensor(unbiased),
         dataset_id=torch.tensor(dataset_id, dtype=torch.int64),
         seed=torch.tensor(config.seed, dtype=torch.int64),
+        drops=drop_t,
         bits=None if bits is None else _per_round(
             bits if isinstance(bits, torch.Tensor)
             else torch.from_numpy(np.array(bits, np.float32)),
@@ -270,6 +296,10 @@ def stack_plans(plans: Sequence[TrajectoryPlan]) -> TrajectoryPlan:
     """Stack per-trajectory plans along a new leading sweep axis."""
     if not plans:
         raise ValueError("stack_plans needs at least one plan")
+    if 0 < sum(p.drops is not None for p in plans) < len(plans):
+        raise ValueError(
+            "cannot stack plans with and without drop tables; give the "
+            "fault-free plans an all-False [K, N] drops array")
     if 0 < sum(p.bits is not None for p in plans) < len(plans):
         raise ValueError(
             "cannot stack plans with and without bit-width tables; give "
@@ -383,11 +413,12 @@ def run_fl_sweep(plans: TrajectoryPlan,
 
     times, energies, counts, accs = [], [], [], []
     for k in range(config.n_rounds):
-        mask = plans.masks[:, k]                       # [T, N]
+        mask = plans.masks[:, k]                       # [T, N] attempted
         a_k = plans.probs[:, k]
-        fmask = mask.to(torch.float32)
 
         # -- accounting (paper Sec. V-B): straggler tx time, summed E --
+        # over the attempted mask: a lost upload still spent its energy
+        # and the round still waited on it
         t_k = plans.tx_time[:, k]
         if config.include_compute_time:
             t_k = t_k + plans.comp_time
@@ -395,9 +426,12 @@ def run_fl_sweep(plans: TrajectoryPlan,
         times.append(torch.where(mask.any(dim=1), straggler, 0.0))
         energies.append(torch.sum(torch.where(mask, plans.round_energy[:, k],
                                               0.0), dim=1))
-        counts.append(mask.sum(dim=1))
 
-        # -- server update (eq. 4) --------------------------------------
+        # -- server update (eq. 4) over the surviving uploads ------------
+        if plans.drops is not None:
+            mask = mask & ~plans.drops[:, k]
+        counts.append(mask.sum(dim=1))
+        fmask = mask.to(torch.float32)
         alpha = torch.where(plans.unbiased[:, None],
                             plans.agg_weights / torch.clamp(a_k, min=1e-6),
                             plans.agg_weights)

@@ -411,5 +411,7 @@ def test_scheduler_draws_follow_the_generator():
     uni = schedulers.UniformScheduler(m=6)
     draw = uni.sample(uni.precompute(p), torch.Generator().manual_seed(0))
     assert int(draw.mask.sum()) == 6
-    with pytest.raises(ValueError, match="greedy_channel"):
-        schedulers.make_scheduler("lyapunov")
+    assert isinstance(schedulers.make_scheduler("lyapunov"),
+                      schedulers.LyapunovScheduler)
+    with pytest.raises(KeyError):
+        schedulers.make_scheduler("round_robin")

@@ -667,3 +667,111 @@ def test_chaos_drive_on_the_card_leaks_nothing(dev):
                                             fault_rate=0.5, device_rate=0.25))
     assert len(rep.report.responses) == len(trace)
     assert rep.nan_escapes == 0 and rep.n_unhealthy_devices > 0
+
+
+# ------------------------------------------------------------ closed loop
+
+CLOSED_LOOP = dict(n_devices=16, n_rounds=4, n_train=256, n_test=64,
+                   eval_every=2)
+CLOSED_LOOP_GATED = ("expected_participants", "mean_participants", "mean_bits",
+                     "total_energy_j", "completion_time_s")
+
+
+@pytest.mark.parametrize("faulted", [False, True])
+def test_closed_loop_on_the_card_matches_the_cpu_run(dev, faulted, tmp_path):
+    """The control trace at 1e-5 with equal counts, and every strategy's
+    accounting at 1e-5 relative: the masks come from CPU generators and
+    the minibatches from numpy on both devices."""
+    from repro_torch.fl.closed_loop import ClosedLoopConfig, run_closed_loop_grid
+    from repro_torch.serve import FaultPlan
+    fp = FaultPlan(seed=3, device_rate=0.25, drop_rate=0.3) if faulted else None
+    outs = []
+    for where in (dev, torch.device("cpu")):
+        cfg = ClosedLoopConfig(**CLOSED_LOOP, fault_plan=fp,
+                               checkpoint_dir=str(tmp_path / where.type)
+                               if faulted else None)
+        outs.append(run_closed_loop_grid(cfg, device=where))
+    card, cpu = outs
+    for key in ("warm_rounds", "inner_iters", "outer_iters"):
+        assert card["control"][key] == cpu["control"][key], key
+    for name, row in cpu["strategies"].items():
+        for key in CLOSED_LOOP_GATED:
+            assert card["strategies"][name][key] == pytest.approx(
+                row[key], rel=SOLVE_TOL), (name, key)
+    if faulted:
+        assert card["faults"]["n_unhealthy_devices"] > 0
+
+
+def test_closed_loop_resume_on_the_card_is_bit_for_bit(dev, tmp_path):
+    from repro_torch.core.scenarios import make_problem
+    from repro_torch.fl.closed_loop import solve_rounds
+    from repro_torch.serve import FleetControlService, ServiceConfig
+    prob = make_problem("drifting_metro", seed=0, n_devices=100, n_rounds=8,
+                        device="cpu")
+    ref = solve_rounds(prob, FleetControlService(ServiceConfig(), device=dev))
+    svc = FleetControlService(ServiceConfig(), device=dev)
+    run, calls = svc.run, [0]
+
+    def crashy(reqs=None):
+        if calls[0] >= 3:
+            raise RuntimeError("simulated crash")
+        calls[0] += 1
+        return run(reqs)
+    svc.run = crashy
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        solve_rounds(prob, svc, checkpoint_dir=str(tmp_path))
+    res = solve_rounds(prob, FleetControlService(ServiceConfig(), device=dev),
+                       checkpoint_dir=str(tmp_path))
+    assert torch.equal(res.a, ref.a) and torch.equal(res.power, ref.power)
+    assert (res.warm_rounds, res.inner_iters, res.outer_iters) == (
+        ref.warm_rounds, ref.inner_iters, ref.outer_iters)
+
+
+def test_quantized_kernel_on_drop_zeroed_coefficients(dev, monkeypatch):
+    """The faulted joint_bits sweep's rounds: their stacked gradients,
+    their coefficients (zero exactly where an attempted upload was lost,
+    positive for the survivors) and their widths, the kernel against its
+    plain version, bit for bit."""
+    from repro_torch.fl import closed_loop, scan_engine
+    from repro_torch.fl.closed_loop import ClosedLoopConfig, run_closed_loop_grid
+    from repro_torch.serve import FaultPlan
+    captured, plans = [], []
+    orig = scan_engine.quantized_aggregate_pytree
+    sweep = closed_loop.run_fl_sweep
+
+    def capture(gstack, coef, bits, *, generator=None, noise=None):
+        if noise is None:
+            noise = agg_ops.uniform_noise_like(gstack, generator)
+        captured.append((gstack, coef, bits, noise))
+        return orig(gstack, coef, bits, noise=noise)
+
+    def record(plan, *a, **kw):
+        plans.append(plan)
+        return sweep(plan, *a, **kw)
+    monkeypatch.setattr(scan_engine, "quantized_aggregate_pytree", capture)
+    monkeypatch.setattr(closed_loop, "run_fl_sweep", record)
+    cfg = ClosedLoopConfig(**CLOSED_LOOP, n_seeds=2, fault_plan=FaultPlan(
+        seed=3, device_rate=0.25, drop_rate=0.3))
+    run_closed_loop_grid(cfg, strategies=("joint_bits",), device=dev)
+    assert len(plans) == 1 and plans[0].drops is not None
+    assert len(captured) == cfg.n_rounds
+    n_lost = 0
+    for k, (gstack, coef, bits, noise) in enumerate(captured):
+        attempted = plans[0].masks[:, k].to(coef.device)
+        lost = attempted & plans[0].drops[:, k].to(coef.device)
+        assert bool((coef[lost] == 0).all()), k
+        assert bool((coef[attempted & ~lost] > 0).all()), k
+        n_lost += int(lost.sum())
+        assert set(bits.unique().tolist()) <= {8.0, 16.0, 32.0}
+        for g, u in zip(tree_leaves(gstack), tree_leaves(noise)):
+            t, n = coef.shape
+            flat = g.reshape(t, n, -1).contiguous()
+            uf = u.reshape(t, n, -1).contiguous()
+            levels = agg_ref.quantizer_levels(bits).contiguous()
+            scale = agg_ops.row_scale(flat, levels)
+            out = agg_ops.quantized_masked_aggregate_batched(flat, coef, uf,
+                                                             scale, levels)
+            plain = agg_ref.quantized_masked_aggregate_ref(flat, coef, uf,
+                                                           scale, levels)
+            assert torch.equal(out, plain), k
+    assert n_lost > 0
