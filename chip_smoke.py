@@ -15,9 +15,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    slices' shapes and at ragged ones, within the stated tolerance;
 3. time each kernel with CUDA events (the decode attention, whose
    launches are shorter than the host's cost of making them, and the SSD
-   scan's passes by the profiler's device time) beside its bound, its
-   plain version and (for the plain aggregate and the decode attention)
-   one PyTorch library call, and profile a few rounds of each sweep;
+   scan's passes by the profiler's device time; the quantised sum's two
+   kernels as device time with their launches queued behind a spin
+   kernel) beside its bound, its
+   plain version and (for the plain aggregate, the quantised sum's scale
+   pass and the decode attention) one PyTorch library call, and profile
+   a few rounds of each sweep; the quantised sum with every row live is
+   its worst case;
 4. drive the first slice: ``run_grid`` over both paper scenarios and all
    four strategies at N = 100 devices with the 199,213-parameter CNN, the
    fused-kernel solve and the kernel aggregate, plus one exact
@@ -26,8 +30,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. drive the quantised-uplink slice: one sweep of 18 trajectories (both
    scenarios x three uplink schemes x three seeds: the joint bit
    allocation over (8, 16, 32), a fixed 8-bit and a fixed 4-bit uplink)
-   whose every round's server sum is the quantised kernel, and hold the
-   loop engine against the sweep at 8 bits on the card;
+   whose every round's server sum is the scale kernel and the quantised
+   kernel (8 launches of each a round), hold one round's own operands
+   against the plain versions and time the two kernels on them beside
+   the function's bound, and hold the loop engine against the sweep at 8
+   bits on the card;
 6. drive the serving slice: gemma3-1b at full width (999,826,048
    parameters from a seeded generator), first teacher-forced decode
    against ``forward`` over 640 tokens, then ``BatchedServer`` on 8
@@ -73,7 +80,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    equal, every strategy's accounting 1e-5 relative); one profiled round
    of the quantised sweep; the same grid under a fault plan, its control
    pass crashed after round 9 and resumed on a fresh service bit for bit;
-   the quantised kernel on that faulted sweep's own operands of one round;
+   the scale and quantised kernels on that faulted sweep's own operands of
+   one round;
    and the entry points ``closed_loop_demo``, ``fading_rounds``,
    ``quickstart`` and ``compression_study`` on the card;
 11. print the kernel record, the card, and the last line
@@ -200,6 +208,7 @@ CLOSED_LOOP_TOL = 1e-5      # card against CPU: the solver tolerance
 CLOSED_LOOP_GATED = ("expected_participants", "mean_participants", "mean_bits",
                      "total_energy_j", "completion_time_s")
 CLOSED_LOOP_OPERANDS_ROUND = 10    # the round whose kernel-4 operands are held
+QUANT_OPERANDS_ROUND = 10          # the quantised sweep's round held in [5]
 
 
 def fail(msg: str) -> None:
@@ -247,13 +256,18 @@ def device_ms(torch, fn, reps: int, kernel: str | None = None):
     warm calls: (all device operations, ``kernel``'s launches, and
     ``kernel``'s launches by function name).  Unlike CUDA events around
     back-to-back calls, it does not count the device's idle time while
-    the host makes the next launch.  A profile that recorded no device
-    time at all is taken again, up to twice."""
+    the host makes the next launch.  The profiler can leave launches at
+    the start of a profile unrecorded, which reads short: a profile that
+    recorded no device time, or a count of ``kernel``'s launches that is
+    not a multiple of ``reps``, is taken again, up to twice, and a line
+    marks the third profile's numbers if they are still short.  The
+    kernel records of the quantised sum use ``queued_ms`` instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    pat = kernel_re(kernel) if kernel else None
+    for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -261,13 +275,45 @@ def device_ms(torch, fn, reps: int, kernel: str | None = None):
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA]
         total = sum(e.self_device_time_total for e in events)
-        if total > 0:
+        mine = [e for e in events if pat and pat.search(e.key)]
+        counts = [e.count for e in mine]
+        if total > 0 and all(c % reps == 0 for c in counts):
             break
+        print(f"  device_ms: profile {attempt + 1} recorded {sum(counts)} "
+              f"launches of {kernel}, not a multiple of {reps} calls; "
+              + ("taken again" if attempt < 2 else "its short numbers used"))
     check(total > 0, "the profiler recorded no device time")
-    pat = kernel_re(kernel) if kernel else None
-    mine = [e for e in events if pat and pat.search(e.key)]
     by_name = {e.key: e.self_device_time_total / 1e3 / reps for e in mine}
     return total / 1e3 / reps, sum(by_name.values()), by_name
+
+
+def queued_ms(torch, fn, reps: int) -> float:
+    """Device time of ``fn`` per call, by CUDA events around ``reps``
+    calls that the host queues while a spin kernel holds the device: the
+    calls then run back to back, so the time counts no wait for the host
+    (as ``cuda_ms`` does) and loses no launch (as the profiler can).  The
+    spin is lengthened until it outlasts the host's queueing; a ``fn``
+    that waits for the device never satisfies that, and fails."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 2_000_000
+    for _ in range(5):
+        hold, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        t0 = time.perf_counter()
+        hold.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_ms_host = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        if hold.elapsed_time(start) > 1.5 * queued_ms_host:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    fail(f"the host took {queued_ms_host:.3f} ms to queue {reps} calls, "
+         f"longer than a {hold.elapsed_time(start):.3f} ms spin")
 
 
 def dynamic_smem(source: Path) -> None:
@@ -501,15 +547,32 @@ def check_aggregate(torch, dev) -> float:
     return worst
 
 
-def check_quantized(torch, dev) -> float:
-    """The quantised sum against its plain version, bit for bit: T in
-    {1, 18}, N in {1, 100}, every CNN leaf size and two ragged ones, at
-    widths 1 (ternary), 4, 8, 32, one that is not whole and a per-client
-    mix, with an all-zero client row and noise at 0 and just below 1."""
+def nan_err(torch, got, want) -> float:
+    """max|got - want| where ``want`` is not NaN; inf where the NaNs
+    differ in place or where an inf is not matched."""
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        return math.inf
+    g, w = got[~nan], want[~nan]
+    if not torch.equal(torch.isinf(g), torch.isinf(w)) or not torch.equal(
+            g[torch.isinf(w)], w[torch.isinf(w)]):
+        return math.inf
+    fin = torch.isfinite(w)
+    return float((g[fin] - w[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def check_quantized(torch, dev) -> tuple[float, float]:
+    """The scale kernel against ``row_scale`` and the quantised sum
+    against its plain version, bit for bit: T in {1, 18}, N in {1, 100},
+    every CNN leaf size and two ragged ones, at widths 1 (ternary), 4, 8,
+    32, one that is not whole and a per-client mix, with an all-zero
+    client row and noise at 0 and just below 1; then the sparse and the
+    non-finite cases (``check_sparse_quantized``).  Returns the sum's and
+    the scale pass's largest error."""
     from repro_torch.kernels.masked_aggregate import ops, ref
     gen = torch.Generator(device=dev).manual_seed(3)
     below_one = float(torch.nextafter(torch.tensor(1.0), torch.tensor(0.0)))
-    worst = 0.0
+    worst = scale_worst = 0.0
     for t in (1, 18):
         for n in (1, 100):
             mix = torch.tensor([1.0, 4.0, 8.0, 16.0, 32.0, NOT_WHOLE],
@@ -530,6 +593,8 @@ def check_quantized(torch, dev) -> float:
                 for bits in widths:
                     levels = ref.quantizer_levels(bits)
                     scale = ops.row_scale(g, levels)
+                    scale_worst = max(scale_worst, nan_err(
+                        torch, ops.row_scale_batched(g, levels), scale))
                     out = ops.quantized_masked_aggregate_batched(
                         g, coef, u, scale, levels)
                     plain = ref.quantized_masked_aggregate_ref(
@@ -548,7 +613,171 @@ def check_quantized(torch, dev) -> float:
                 check(err <= QUANT_TOL,
                       f"quantized T={t} N={n} D={d}: error {err} > {QUANT_TOL}")
                 worst = max(worst, err)
-    return worst
+    print(f"  row_scale kernel against row_scale over the same operands: "
+          f"max error {scale_worst:.3e} (tol {QUANT_TOL:g})")
+    check(scale_worst <= QUANT_TOL, f"row_scale kernel: error {scale_worst}")
+    sparse, sparse_scale = check_sparse_quantized(torch, dev)
+    return max(worst, sparse), max(scale_worst, sparse_scale)
+
+
+def check_sparse_quantized(torch, dev) -> tuple[float, float]:
+    """The wrapper (scale kernel, then the sum that reads only the rows
+    with a nonzero coefficient) against ``row_scale`` and the plain sum,
+    at T in {1, 18}, N = 100, every CNN leaf size and a ragged one, mixed
+    widths: no live client, one, 22 % and all of them; then a client
+    whose coefficient is 0 but whose row holds a NaN, an inf, or zeros at
+    a width whose scale underflows to 0 (127 bits), in trajectory 0 only:
+    NaN exactly where the plain version has NaN, all else equal."""
+    from repro_torch.kernels.masked_aggregate import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst = scale_worst = 0.0
+    n = 100
+    for t in (1, 18):
+        bits = torch.tensor([4.0, 8.0, 16.0, 32.0], device=dev)[
+            torch.randint(0, 4, (t, n), device=dev, generator=gen)]
+        for case in ("none", "one", "22pct", "all", "nan", "inf", "underflow"):
+            errs, scale_errs, n_nan = [], [], 0
+            for d in (1001,) + CNN_LEAVES:
+                g = torch.randn(t, n, d, device=dev, generator=gen)
+                u = torch.rand(t, n, d, device=dev, generator=gen)
+                keep = {"none": 0, "one": 1, "all": n}.get(case, 22)
+                coef = torch.rand(t, n, device=dev, generator=gen) + 0.01
+                order = torch.rand(t, n, device=dev,
+                                   generator=gen).argsort(dim=1)
+                coef.scatter_(1, order[:, keep:], 0.0)
+                b = bits.clone()
+                dead = int(order[0, -1])            # coefficient 0
+                if case in ("nan", "inf"):
+                    g[0, dead, d // 2] = float(case)
+                elif case == "underflow":
+                    g[0, dead] = 0.0
+                    b[0, dead] = 127.0
+                levels = ref.quantizer_levels(b)
+                scale = ops.row_scale(g, levels)
+                scale_errs.append(nan_err(
+                    torch, ops.row_scale_batched(g, levels), scale))
+                out = ops.quantized_masked_aggregate(g, coef, u, b)
+                plain = ref.quantized_masked_aggregate_ref(g, coef, u, scale,
+                                                           levels)
+                torch.cuda.synchronize()
+                errs.append(nan_err(torch, out, plain))
+                n_nan += int(torch.isnan(plain).any(dim=1).sum())
+                check(case not in ("nan", "inf", "underflow") or (
+                    bool(torch.isnan(plain[0]).all())
+                    and bool(torch.isfinite(plain[1:]).all())),
+                    f"sparse quantised case {case}: the plain version's NaN "
+                    f"are not where the case puts them")
+            err, scale_err = max(errs), max(scale_errs)
+            print(f"  quantized wrapper T={t:>2} N={n} {case:9s} ({keep if case in ('none', 'one', 'all') else 22} "
+                  f"live a trajectory, 9 leaves): max|kernels - plain| = "
+                  f"{err:.3e}, scale {scale_err:.3e} (tol {QUANT_TOL:g}); "
+                  f"{n_nan} NaN trajectory rows, at the plain version's places")
+            check(err <= QUANT_TOL and scale_err <= QUANT_TOL,
+                  f"sparse quantised case {case} T={t}: error {err}, "
+                  f"scale {scale_err}")
+            worst, scale_worst = max(worst, err), max(scale_worst, scale_err)
+    return worst, scale_worst
+
+
+def quant_round_bounds(t: int, n: int, ds, live: int) -> dict:
+    """Bounds (ms, by) of one round's quantised sums over leaves of widths
+    ``ds`` with ``live`` (trajectory, client) rows of nonzero coefficient:
+    the scale pass (every row read once, levels read, scales written),
+    the sum given the scales (coefficients, scales and levels, then g and
+    noise of the live rows, the output), the function (one read of every
+    row for its max, g and noise again for the live rows) and the function
+    priced over every row."""
+    d, k = sum(ds), len(ds)
+    return dict(
+        scale=bound_ms(4 * (t * n * d + 2 * t * n * k), t * n * d),
+        sum=bound_ms(4 * (3 * t * n * k + 2 * live * d + t * d),
+                     QUANT_OPS * live * d),
+        pair=bound_ms(4 * (t * n * d + 2 * t * n * k + 2 * live * d + t * d),
+                      t * n * d + QUANT_OPS * live * d),
+        all_rows=bound_ms(4 * (3 * t * n * d + 2 * t * n * k + t * d),
+                          t * n * d + QUANT_OPS * t * n * d))
+
+
+def time_quant_round(torch, label: str, leaves, coef, levels, tag: str = "",
+                     reps: int = 20) -> dict:
+    """One round's quantised sums on ``leaves`` [(g, noise)], each [T, N,
+    D_leaf], with ``coef`` and ``levels`` [T, N]: the scale kernel
+    against ``row_scale`` and the sum against its plain version, bit for
+    bit; then, by CUDA events over back-to-back calls (host time between
+    launches included) and as device time, the scale
+    kernel, ``row_scale`` (the plain scale pass), the library's scale
+    pass (``torch.linalg.vector_norm(ord=inf)``, the one PyTorch call for
+    max|g|, then the clamp and the division), the sum given the scales,
+    the pair and the plain sum; each beside ``quant_round_bounds``.  The
+    device times are ``queued_ms``'s (the plain sum's the profiler's); a
+    kernel's below its bound fails.
+    Returns the numbers."""
+    from repro_torch.kernels.masked_aggregate import ops, ref
+    t, n = coef.shape
+    ops_ = [(g, coef, u, ops.row_scale_batched(g, levels), levels)
+            for g, u in leaves]
+    err = scale_err = 0.0
+    for g, _, _, scale, _ in ops_:
+        scale_err = max(scale_err, nan_err(torch, scale, ops.row_scale(g, levels)))
+    for op in ops_:
+        out = ops.quantized_masked_aggregate_batched(*op)
+        plain = ref.quantized_masked_aggregate_ref(*op)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+        err = max(err, nan_err(torch, out, plain))
+
+    fns = dict(
+        scale=lambda: [ops.row_scale_batched(g, levels) for g, _ in leaves],
+        scale_plain=lambda: [ops.row_scale(g, levels) for g, _ in leaves],
+        scale_library=lambda: [torch.clamp(torch.linalg.vector_norm(
+            g, ord=math.inf, dim=-1), min=1e-12) / levels for g, _ in leaves],
+        sum=lambda: [ops.quantized_masked_aggregate_batched(*op) for op in ops_],
+        pair=lambda: [ops.quantized_masked_aggregate_batched(
+            g, coef, u, ops.row_scale_batched(g, levels), levels)
+            for g, u in leaves],
+        plain=lambda: [ref.quantized_masked_aggregate_ref(*op) for op in ops_])
+    ms, dev = {}, {}
+    for name, fn in fns.items():
+        r = 3 if name == "plain" else reps
+        ms[name] = cuda_ms(torch, fn, r)
+        # device time: the launches back to back, without the host's gaps
+        # between them (small leaves take the host longer than the card);
+        # at most 10 calls, so the launches fit the device's queue.  The
+        # plain sum's temporaries (GBs) make the host wait on the device,
+        # so its calls cannot be queued: the profiler times it.
+        dev[name] = (device_ms(torch, fn, r)[0] if name == "plain"
+                     else queued_ms(torch, fn, min(r, 10)))
+    live = int((coef != 0).sum())
+    ds = [g.shape[-1] for g, _ in leaves]
+    b = quant_round_bounds(t, n, ds, live)
+    gb = 4 * t * n * sum(ds) / 1e9
+    print(f"  {label}: T={t} N={n}, {len(ds)} leaves, D={sum(ds):,d}, "
+          f"{live} of {t * n} rows with a nonzero coefficient ({gb:.3f} GB of "
+          f"g): max|kernel - plain| {err:.3e}, scale {scale_err:.3e} (tol "
+          f"{QUANT_TOL:g}) {tag}")
+    print(f"    scale kernel {ms['scale']:.6f} ms by events, {dev['scale']:.6f} "
+          f"device (bound {b['scale'][0]:.6f}, at {b['scale'][0] / dev['scale']:.3f}"
+          f"); row_scale {ms['scale_plain']:.6f} / {dev['scale_plain']:.6f}; "
+          f"vector_norm(inf), clamp, divide {ms['scale_library']:.6f} / "
+          f"{dev['scale_library']:.6f} (events / device)")
+    print(f"    kernel 4 {ms['sum']:.6f} ms by events, {dev['sum']:.6f} device "
+          f"(bound {b['sum'][0]:.6f}, at {b['sum'][0] / dev['sum']:.3f}); plain "
+          f"{ms['plain']:.6f} / {dev['plain']:.6f} ms")
+    print(f"    the pair {ms['pair']:.6f} ms by events, {dev['pair']:.6f} "
+          f"device, against the function's bound {b['pair'][0]:.6f} ms "
+          f"({b['pair'][1]}; at {b['pair'][0] / ms['pair']:.3f} / "
+          f"{b['pair'][0] / dev['pair']:.3f}); the bound over all {t * n} rows "
+          f"{b['all_rows'][0]:.6f} ms; row_scale + kernel 4 "
+          f"{ms['scale_plain'] + ms['sum']:.6f} / "
+          f"{dev['scale_plain'] + dev['sum']:.6f} ms")
+    check(err <= QUANT_TOL and scale_err <= QUANT_TOL,
+          f"{label}: error {err}, scale {scale_err} > {QUANT_TOL}")
+    for part in ("scale", "sum"):
+        check(dev[part] >= b[part][0], f"{label}: {part} read "
+              f"{dev[part]:.6f} ms device time, below its bound "
+              f"{b[part][0]:.6f} ms")
+    return dict(ms=ms, dev=dev, bounds=b, live=live, err=err,
+                scale_err=scale_err)
 
 
 def time_kernels(torch, dev, sass: dict) -> dict:
@@ -600,29 +829,17 @@ def time_kernels(torch, dev, sass: dict) -> dict:
     rec["masked_aggregate"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                    bound_by=b_by, library_ms=lib_ms)
     del gs
-    # one quantised round: every CNN leaf at T = 18 trajectories, N = 100,
-    # 8 bits; no single PyTorch call computes quantise-plus-sum
+    # one quantised round with every row live, the sum's worst case: every
+    # CNN leaf at T = 18 trajectories, N = 100, 8 bits, coefficients in
+    # (0, 1); no single PyTorch call computes quantise-plus-sum
     t, n = 18, 100
-    gs = [torch.randn(t, n, d, device=dev, generator=gen) for d in CNN_LEAVES]
-    us = [torch.rand(t, n, d, device=dev, generator=gen) for d in CNN_LEAVES]
-    coef = torch.rand(t, n, device=dev, generator=gen)
+    leaves = [(torch.randn(t, n, d, device=dev, generator=gen),
+               torch.rand(t, n, d, device=dev, generator=gen))
+              for d in CNN_LEAVES]
+    coef = torch.rand(t, n, device=dev, generator=gen) + 1e-3
     levels = agg_ref.quantizer_levels(torch.full((t, n), 8.0, device=dev))
-    scales = [agg_ops.row_scale(g, levels) for g in gs]
-    nbytes = sum(4 * (2 * t * n * d + 3 * t * n + t * d) for d in CNN_LEAVES)
-    nops = sum(QUANT_OPS * t * n * d for d in CNN_LEAVES)
-    ms = cuda_ms(torch, lambda: [
-        agg_ops.quantized_masked_aggregate_batched(g, coef, u, sc, levels)
-        for g, u, sc in zip(gs, us, scales)], 20)
-    plain_ms = cuda_ms(torch, lambda: [
-        agg_ref.quantized_masked_aggregate_ref(g, coef, u, sc, levels)
-        for g, u, sc in zip(gs, us, scales)], 3)
-    b_ms, b_by = bound_ms(nbytes, nops)
-    print(f"  quantized_masked_aggregate one round (8 leaves, T=18, N=100, "
-          f"8 bits, {nbytes / 1e9:.3f} GB): kernel {ms:.6f} ms, plain "
-          f"{plain_ms:.6f} ms, library none, bound {b_ms:.6f} ms ({b_by}); "
-          f"kernel at {nbytes / ms / 1e6:.1f} GB/s")
-    rec["quantized_masked_aggregate"] = dict(
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    time_quant_round(torch, "quantised round, every row live (dense case)",
+                     leaves, coef, levels)
     return rec
 
 
@@ -1244,17 +1461,23 @@ def quantized_plans(torch, dev, rounds=None, eval_every=None):
 def run_quantized(torch, dev, rounds, eval_every) -> dict:
     """The quantised slice's main path, with every launch count zeroed
     just before it: planning and one sweep of all 18 trajectories."""
+    from repro_torch.fl import scan_engine
     from repro_torch.fl.scan_engine import init_sweep_params, run_fl_sweep, stack_plans
     from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.masked_aggregate import ref as agg_ref
     from repro_torch.tree import tree_leaves
+    record: dict = {}
     torch.cuda.synchronize()
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
     plans, labels, cfgs, trains, tests, info = quantized_plans(
         torch, dev, rounds, eval_every)
     t1 = time.perf_counter()
-    sweep = run_fl_sweep(stack_plans(plans), trains, tests, cfgs[0],
-                         init_sweep_params(cfgs, device=dev), device=dev)
+    capture = captured_operands(
+        record, min(QUANT_OPERANDS_ROUND, cfgs[0].n_rounds - 1))
+    with wrapped(scan_engine, "quantized_aggregate_pytree", capture):
+        sweep = run_fl_sweep(stack_plans(plans), trains, tests, cfgs[0],
+                             init_sweep_params(cfgs, device=dev), device=dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = dict(cuda_lib.LAUNCHES)
@@ -1264,9 +1487,9 @@ def run_quantized(torch, dev, rounds, eval_every) -> dict:
     print(f"  quantised sweep: {len(plans)} trajectories x {rounds} rounds, "
           f"{t2 - t1:.3f} s wall (planning {t1 - t0:.3f} s before it)")
     print(f"  launches on the main path: {launches}")
-    check(launches["quantized_masked_aggregate"] == 8 * rounds,
-          f"quantized_masked_aggregate launched "
-          f"{launches['quantized_masked_aggregate']} times, not 8 x {rounds}")
+    for name in ("row_scale", "quantized_masked_aggregate"):
+        check(launches[name] == 8 * rounds,
+              f"{name} launched {launches[name]} times, not 8 x {rounds}")
     print(f"  {'scenario/scheme':28s} {'E[part]':>8} {'width':>6} "
           f"{'energy J':>10} {'time s':>9} {'final acc':>9}")
     for key, st in info.items():
@@ -1286,7 +1509,17 @@ def run_quantized(torch, dev, rounds, eval_every) -> dict:
               f"{st['width']:6.2f} {energy:10.3f} {sim_time:9.3f} {acc:9.4f}")
     for x in tree_leaves(sweep.params):
         check(bool(torch.isfinite(x).all()), "non-finite parameters")
-    return dict(launches=launches)
+    del sweep
+    gstack, coef, bits, noise = record["operands"]
+    t, n = coef.shape
+    leaves = [(g.reshape(t, n, -1).contiguous(), u.reshape(t, n, -1).contiguous())
+              for g, u in zip(tree_leaves(gstack), tree_leaves(noise))]
+    levels = agg_ref.quantizer_levels(torch.as_tensor(
+        bits, dtype=torch.float32, device=dev)).expand(t, n).contiguous()
+    timed = time_quant_round(
+        torch, f"the quantised sweep's own round {record['round']}", leaves,
+        coef.contiguous(), levels, f"[{card()}]")
+    return dict(launches=launches, round=timed)
 
 
 def check_quantized_loop(torch, dev) -> None:
@@ -1945,6 +2178,31 @@ def wrapped(module, name: str, wrapper):
         setattr(module, name, orig)
 
 
+def captured_operands(record: dict, operands_round):
+    """A wrapper for ``quantized_aggregate_pytree`` that keeps the
+    operands of its call number ``operands_round`` in ``record``
+    ("operands": the stacked gradients, coefficients, widths and the
+    noise the wrapper would draw from its generators; "round").  That
+    call gets the noise passed in, so the path computes what it does
+    alone."""
+    from repro_torch.kernels.masked_aggregate import ops as agg_ops
+
+    def quantized(orig):
+        calls = [0]
+
+        def run(gstack, coef, bits, *, generator=None, noise=None):
+            if calls[0] == operands_round:
+                if noise is None:
+                    noise = agg_ops.uniform_noise_like(gstack, generator)
+                record["operands"] = (gstack, coef, bits, noise)
+                record["round"] = operands_round
+                generator = None
+            calls[0] += 1
+            return orig(gstack, coef, bits, generator=generator, noise=noise)
+        return run
+    return quantized
+
+
 def closed_loop_grid(torch, dev, cfg, record: dict, operands_round=None):
     """``run_closed_loop_grid`` on ``dev`` with its control trace, the
     quantised sweep's arguments and (at ``operands_round``) one round's
@@ -1952,7 +2210,6 @@ def closed_loop_grid(torch, dev, cfg, record: dict, operands_round=None):
     recording only keeps references: the path runs as it does alone."""
     from repro_torch.fl import closed_loop as cl
     from repro_torch.fl import scan_engine
-    from repro_torch.kernels.masked_aggregate import ops as agg_ops
 
     def solve_rounds(orig):
         def run(problem, *a, **kw):
@@ -1968,22 +2225,10 @@ def closed_loop_grid(torch, dev, cfg, record: dict, operands_round=None):
             return orig(plans, *a, **kw)
         return run
 
-    def quantized(orig):
-        calls = [0]
-
-        def run(gstack, coef, bits, *, generator=None, noise=None):
-            if calls[0] == operands_round:
-                # the noise the wrapper would draw from these generators
-                noise = agg_ops.uniform_noise_like(gstack, generator)
-                record["operands"] = (gstack, coef, bits, noise)
-                generator = None
-            calls[0] += 1
-            return orig(gstack, coef, bits, generator=generator, noise=noise)
-        return run
-
     with wrapped(cl, "solve_rounds", solve_rounds), \
             wrapped(cl, "run_fl_sweep", sweep), \
-            wrapped(scan_engine, "quantized_aggregate_pytree", quantized):
+            wrapped(scan_engine, "quantized_aggregate_pytree",
+                    captured_operands(record, operands_round)):
         return cl.run_closed_loop_grid(cfg, device=dev)
 
 
@@ -2029,11 +2274,12 @@ def one_round(plans, cfg):
 
 
 def check_closed_loop_operands(torch, record: dict, tag: str) -> None:
-    """Kernel 4 on the faulted joint_bits sweep's own operands of one
-    round: the stacked client gradients, the coefficients (zero where an
-    upload was attempted and lost) and the width table, against its
-    plain version with the same noise, and both timed."""
-    from repro_torch.kernels.masked_aggregate import ops as agg_ops
+    """The scale kernel and kernel 4 on the faulted joint_bits sweep's own
+    operands of one round: the stacked client gradients, the coefficients
+    (zero where an upload was attempted and lost) and the width table,
+    against their plain versions with the same noise, and timed beside
+    the function's bound (one read of every row for its scale, then g
+    and noise of the rows with a nonzero coefficient)."""
     from repro_torch.kernels.masked_aggregate import ref as agg_ref
     from repro_torch.tree import tree_leaves
     gstack, coef, bits, noise = record["operands"]
@@ -2047,43 +2293,13 @@ def check_closed_loop_operands(torch, record: dict, tag: str) -> None:
           "uploads were lost")
     t, n = coef.shape
     levels = agg_ref.quantizer_levels(bits).contiguous()
-    ops_ = []
-    for g, u in zip(tree_leaves(gstack), tree_leaves(noise)):
-        flat = g.reshape(t, n, -1).contiguous()
-        ops_.append((flat, coef.contiguous(), u.reshape(t, n, -1).contiguous(),
-                     agg_ops.row_scale(flat, levels), levels))
-    err = 0.0
-    for op in ops_:
-        out = agg_ops.quantized_masked_aggregate_batched(*op)
-        plain = agg_ref.quantized_masked_aggregate_ref(*op)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()), "non-finite kernel-4 output")
-        err = max(err, float((out - plain).abs().max()))
-    ms = cuda_ms(torch, lambda: [agg_ops.quantized_masked_aggregate_batched(*op)
-                                 for op in ops_], 20)
-    plain_ms = cuda_ms(torch, lambda: [agg_ref.quantized_masked_aggregate_ref(*op)
-                                       for op in ops_], 3)
-    d = sum(op[0].shape[-1] for op in ops_)
-    # the function's bound: out[t, :] = sum_i coef[t, i] Q(g[t, i, :]) needs
-    # every coefficient, but the rows, scales, widths and noise only of the
-    # clients whose coefficient is nonzero
-    live = int((coef != 0).sum())
-    b_ms, b_by = bound_ms(4 * (t * n * len(ops_) + 2 * live * d
-                               + 2 * live * len(ops_) + t * d),
-                          QUANT_OPS * live * d)
-    dense_ms, _ = bound_ms(4 * (2 * t * n * d + 3 * t * n * len(ops_) + t * d),
-                           QUANT_OPS * t * n * d)
+    leaves = [(g.reshape(t, n, -1).contiguous(), u.reshape(t, n, -1).contiguous())
+              for g, u in zip(tree_leaves(gstack), tree_leaves(noise))]
     widths = {int(b): int((bits == b).sum()) for b in bits.unique().tolist()}
-    print(f"  kernel 4 on the faulted joint_bits round {k}'s operands (T={t}, "
-          f"N={n}, 8 leaves, widths {widths}, {int(lost.sum())} uploads lost "
-          f"with coefficient 0, {live} survivors): max|kernel - plain| = "
-          f"{err:.3e} (tol {QUANT_TOL:g}); kernel {ms:.6f} ms, plain "
-          f"{plain_ms:.6f} ms; the function's bound {b_ms:.6f} ms ({b_by}, "
-          f"the {live} rows with a nonzero coefficient), kernel at "
-          f"{b_ms / ms:.3f} of it; the bound over all {t * n} rows, which the "
-          f"kernel reads, {dense_ms:.6f} ms {tag}")
-    check(err <= QUANT_TOL, f"kernel 4 on the closed loop's operands: error "
-          f"{err} > {QUANT_TOL}")
+    time_quant_round(
+        torch, f"the faulted joint_bits round {k}'s operands (widths {widths}, "
+        f"{int(lost.sum())} uploads lost with coefficient 0)", leaves,
+        coef.contiguous(), levels, tag)
 
 
 def run_closed_loop(torch, dev, card_line: str) -> dict:
@@ -2118,9 +2334,9 @@ def run_closed_loop(torch, dev, card_line: str) -> dict:
     print(f"  launches on the closed loop's path: {launches}")
     check_grid(card, "card")
     want = 8 * cfg.n_rounds
-    check(launches["quantized_masked_aggregate"] == want,
-          f"quantized_masked_aggregate launched "
-          f"{launches['quantized_masked_aggregate']} times, not {want}")
+    for name in ("row_scale", "quantized_masked_aggregate"):
+        check(launches[name] == want,
+              f"{name} launched {launches[name]} times, not {want}")
 
     t0 = time.perf_counter()
     cpu_rec: dict = {}
@@ -2244,9 +2460,10 @@ def run_closed_loop(torch, dev, card_line: str) -> dict:
     got = runs["compression_study"][1]
     n3, n4 = got.get("masked_aggregate", 0), got.get("quantized_masked_aggregate", 0)
     check(0 < n3 <= 8 * study_rounds and n3 % 8 == 0
-          and 0 < n4 <= 2 * 8 * study_rounds and n4 % 8 == 0,
-          f"compression_study launched {got}: kernel 3 and kernel 4 not both "
-          f"on its path, 8 leaves a round")
+          and 0 < n4 <= 2 * 8 * study_rounds and n4 % 8 == 0
+          and got.get("row_scale", 0) == n4,
+          f"compression_study launched {got}: kernel 3, kernel 4 and the "
+          f"scale kernel not all on its path, 8 leaves a round")
     print("  entry points, each with the launch counts zeroed just before it: "
           + "; ".join(f"{name} {sec:.1f} s, launches {counts}"
                       for name, (sec, counts) in runs.items())
@@ -2306,7 +2523,8 @@ def main() -> int:
     print("[2] kernels against their plain versions" + at(), flush=True)
     errs = check_solvers(torch, dev)
     errs["masked_aggregate"] = check_aggregate(torch, dev)
-    errs["quantized_masked_aggregate"] = check_quantized(torch, dev)
+    errs["quantized_masked_aggregate"], errs["row_scale"] = check_quantized(
+        torch, dev)
     errs["swa_decode"] = check_decode(torch, dev)
     mamba2 = init_mamba2(torch, dev)
     errs["ssd_scan"] = check_ssd(torch, dev, *mamba2)
@@ -2330,8 +2548,21 @@ def main() -> int:
           "schemes" + at(), flush=True)
     qout = run_quantized(torch, dev, args.rounds, args.eval_every)
     check_quantized_loop(torch, dev)
-    out["launches"]["quantized_masked_aggregate"] = \
-        qout["launches"]["quantized_masked_aggregate"]
+    for name in ("row_scale", "quantized_masked_aggregate"):
+        out["launches"][name] = qout["launches"][name]
+    # the two kernels' record: the sweep's own round, the device time of
+    # its 8 launches (kernel, plain and library alike), the function's bound
+    qr = qout["round"]
+    errs["row_scale"] = max(errs["row_scale"], qr["scale_err"])
+    errs["quantized_masked_aggregate"] = max(
+        errs["quantized_masked_aggregate"], qr["err"])
+    for name, part, plain, lib in (
+            ("row_scale", "scale", "scale_plain", "scale_library"),
+            ("quantized_masked_aggregate", "sum", "plain", None)):
+        b_ms, b_by = qr["bounds"][part]
+        rec[name] = dict(ms=qr["dev"][part], plain_ms=qr["dev"][plain],
+                         bound_ms=b_ms, bound_by=b_by,
+                         library_ms=qr["dev"][lib] if lib else None)
 
     print("[6] serving gemma3-1b at full width" + at(), flush=True)
     served = serve_gemma3(torch, dev)
@@ -2366,6 +2597,8 @@ def main() -> int:
                                    "src/repro/kernels/selection_solve/kernel.py:83"),
                "masked_aggregate": ("src/repro_torch/csrc/masked_aggregate.cu",
                                     "src/repro/kernels/masked_aggregate/kernel.py:91"),
+               "row_scale": ("src/repro_torch/csrc/masked_aggregate.cu",
+                             "src/repro/kernels/masked_aggregate/ops.py:62"),
                "quantized_masked_aggregate": (
                    "src/repro_torch/csrc/masked_aggregate.cu",
                    "src/repro/kernels/masked_aggregate/kernel.py:58"),

@@ -33,13 +33,15 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
               "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"fused_solve": 0, "selection_solve": 0, "masked_aggregate": 0,
-            "quantized_masked_aggregate": 0, "swa_decode": 0, "ssd_scan": 0}
+            "row_scale": 0, "quantized_masked_aggregate": 0, "swa_decode": 0,
+            "ssd_scan": 0}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "repro_fused_solve": [_P] * 6 + [_LL, _F, _F, _F, _F, _I, _I, _P],
     "repro_selection_solve": [_P] * 6 + [_LL, _F, _F, _F, _P],
     "repro_masked_aggregate": [_P] * 3 + [_I, _I, _LL, _P],
+    "repro_row_scale": [_P] * 3 + [_LL, _LL, _P],
     "repro_quantized_masked_aggregate": [_P] * 6 + [_I, _I, _LL, _P],
     "repro_swa_decode": [_P] * 7 + [_I] * 6 + [_LL, _LL, _P],
     "repro_ssd_scan": [_P] * 12 + [_I] * 6 + [_P],

@@ -3,8 +3,9 @@ and with each client's uplink stochastically rounded to b bits.
 
 ``masked_aggregate_batched`` takes g [T, N, D] and coef [T, N];
 ``quantized_masked_aggregate_batched`` also takes noise [T, N, D] and
-the per-row scale and level count [T, N].  For CPU tensors they run the
-plain versions of ``ref.py``, for CUDA tensors they launch the kernels of
+the per-row scale and level count [T, N], which ``row_scale_batched``
+computes from g.  For CPU tensors they run the plain versions
+(``ref.py``, ``row_scale``), for CUDA tensors they launch the kernels of
 ``csrc/masked_aggregate.cu`` on the current stream, or raise.
 ``masked_aggregate`` / ``quantized_masked_aggregate`` reshape client
 stacks for them, and the ``*_pytree`` front ends (the FL engines'
@@ -90,6 +91,27 @@ def row_scale(flat: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.amax(torch.abs(flat), dim=-1), min=1e-12) / levels
 
 
+def row_scale_batched(gstack: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+    """g [T, N, D] and levels [T, N] -> scale [T, N] float32, each row's
+    max(amax|g|, 1e-12) / L: ``row_scale`` for CPU tensors, the scale
+    kernel for CUDA tensors, bit for bit (a NaN in a row gives NaN, an
+    inf inf)."""
+    if gstack.ndim != 3 or tuple(levels.shape) != tuple(gstack.shape[:2]):
+        raise ValueError(f"expected g [T, N, D] and levels [T, N], got "
+                         f"{tuple(gstack.shape)} and {tuple(levels.shape)}")
+    if gstack.device.type == "cpu":
+        return row_scale(gstack, levels)
+    check_operands(gstack, levels)
+    t, n, d = gstack.shape
+    if d == 0:
+        raise ValueError("row_scale_batched needs rows of at least one value")
+    scale = torch.empty((t, n), dtype=torch.float32, device=gstack.device)
+    launch("repro_row_scale", gstack.data_ptr(), levels.data_ptr(),
+           scale.data_ptr(), t * n, d)
+    LAUNCHES["row_scale"] += 1
+    return scale
+
+
 def quantized_masked_aggregate(gstack: torch.Tensor, coef: torch.Tensor,
                                noise: torch.Tensor, bits) -> torch.Tensor:
     """gstack and noise [N, ...] with coef [N] -> [...], or with a leading
@@ -97,7 +119,8 @@ def quantized_masked_aggregate(gstack: torch.Tensor, coef: torch.Tensor,
     row stochastically rounded to its width, then the masked sum.
     ``bits`` is a number or a tensor that broadcasts to coef's shape
     ([N], or [T, N]).  The level count and each row's scale are computed
-    here, once, for the kernel (or its plain version)."""
+    here, once, for the kernel (or its plain version): on the card two
+    launches, the scale pass and the sum."""
     batched = coef.ndim == 2
     if not batched:
         gstack, noise, coef = gstack[None], noise[None], coef[None]
@@ -106,7 +129,7 @@ def quantized_masked_aggregate(gstack: torch.Tensor, coef: torch.Tensor,
     noise_f = noise.reshape(t, n, -1).to(torch.float32).contiguous()
     bits = torch.as_tensor(bits, dtype=torch.float32, device=flat.device)
     levels = torch.broadcast_to(quantizer_levels(bits), (t, n)).contiguous()
-    scale = row_scale(flat, levels)
+    scale = row_scale_batched(flat, levels)
     out = quantized_masked_aggregate_batched(
         flat, coef.to(torch.float32).contiguous(), noise_f, scale, levels)
     out = out.reshape((t,) + tuple(gstack.shape[2:]))

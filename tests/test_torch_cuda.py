@@ -166,6 +166,122 @@ def test_quantized_aggregate_matches_plain_version(dev, t, n):
                 rtol=0, atol=0)
 
 
+def _equal_with_nan(got, want) -> bool:
+    """NaN at the same places, every other value equal."""
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan], want[~nan]))
+
+
+def _unaligned(x):
+    """A contiguous copy of ``x`` that starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("t", [1, 18])
+def test_row_scale_kernel_matches_row_scale(dev, t):
+    """The scale kernel against ``row_scale``, bit for bit, over every CNN
+    leaf size and two ragged ones, with a NaN, an inf, a -inf and an
+    all-zero row, mixed widths, and a row that starts off a 16-byte
+    boundary."""
+    n = 100
+    gen = torch.Generator(device=dev).manual_seed(t)
+    bits = torch.tensor([1.0, 4.0, 8.0, 16.0, 32.0, NOT_WHOLE], device=dev)[
+        torch.randint(0, 6, (t, n), device=dev, generator=gen)]
+    levels = agg_ref.quantizer_levels(bits)
+    for d in CNN_LEAVES + (33, 1001):
+        g = torch.randn(t, n, d, device=dev, generator=gen)
+        g[:, 1] = 0.0
+        g[:, 2, d // 2] = float("nan")
+        g[:, 3, d - 1] = float("inf")
+        g[:, 4, 0] = -float("inf")
+        plain = agg_ops.row_scale(g, levels)
+        for x in (g, _unaligned(g)):
+            before = cuda_lib.LAUNCHES["row_scale"]
+            got = agg_ops.row_scale_batched(x, levels)
+            assert cuda_lib.LAUNCHES["row_scale"] == before + 1
+            assert _equal_with_nan(got, plain), d
+        assert bool(torch.isnan(plain[:, 2]).all())
+        assert bool(torch.isinf(plain[:, 3:5]).all())
+    with pytest.raises(ValueError, match="expected g"):
+        agg_ops.row_scale_batched(g, levels[:, :2])
+
+
+@pytest.mark.parametrize("live", [0, 1, "22pct", "all"])
+@pytest.mark.parametrize("t,n", [(1, 100), (18, 100), (2, 300)])
+def test_quantized_kernel_skips_zero_coefficient_rows_exactly(dev, live, t, n):
+    """No live client, one, about 22 % and all of them (N = 300 spans two
+    of a block's row lists): the kernel, which reads only the rows with a
+    nonzero coefficient, against its plain version, bit for bit, with its
+    scale from the scale kernel; one launch of each per wrapper call."""
+    gen = torch.Generator(device=dev).manual_seed(n + t)
+    keep = {0: 0, 1: 1, "22pct": round(0.22 * n), "all": n}[live]
+    bits = torch.tensor([4.0, 8.0, 16.0, 32.0], device=dev)[
+        torch.randint(0, 4, (t, n), device=dev, generator=gen)]
+    levels = agg_ref.quantizer_levels(bits)
+    for d in (33, 1000, 2490, 195216):
+        g = torch.randn(t, n, d, device=dev, generator=gen)
+        u = torch.rand(t, n, d, device=dev, generator=gen)
+        coef = torch.rand(t, n, device=dev, generator=gen) + 0.01
+        order = torch.rand(t, n, device=dev, generator=gen).argsort(dim=1)
+        coef.scatter_(1, order[:, keep:], 0.0)
+        assert int((coef != 0).sum()) == t * keep
+        for x, noise in ((g, u), (_unaligned(g), _unaligned(u))):
+            scale = agg_ops.row_scale_batched(x, levels)
+            out = agg_ops.quantized_masked_aggregate_batched(x, coef, noise,
+                                                             scale, levels)
+            plain = agg_ref.quantized_masked_aggregate_ref(x, coef, noise,
+                                                           scale, levels)
+            assert torch.equal(out, plain), d
+        before = dict(cuda_lib.LAUNCHES)
+        wrapped = agg_ops.quantized_masked_aggregate(g, coef, u, bits)
+        assert cuda_lib.LAUNCHES["row_scale"] == before["row_scale"] + 1
+        assert (cuda_lib.LAUNCHES["quantized_masked_aggregate"]
+                == before["quantized_masked_aggregate"] + 1)
+        assert torch.equal(wrapped, out)
+        if keep == 0:
+            assert not bool(out.any())
+
+
+@pytest.mark.parametrize("bad", ["nan", "inf", "underflow"])
+def test_quantized_kernel_keeps_nan_of_nonfinite_zero_coefficient_rows(dev, bad):
+    """A client whose coefficient is 0 but whose row holds a NaN or an inf
+    (its scale is then NaN or inf), or an all-zero row at a width whose
+    scale underflows to 0: 0 * Q(g) is NaN there, so the kernel must read
+    that row.  Trajectories 0 and 1 hold such a row, trajectory 2 none;
+    NaN exactly where the plain version has NaN, every other value equal."""
+    t, n = 3, 100
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for d in (33, 1000, 195216):
+        g = torch.randn(t, n, d, device=dev, generator=gen)
+        u = torch.rand(t, n, d, device=dev, generator=gen)
+        coef = torch.rand(t, n, device=dev, generator=gen)
+        coef = coef * (coef > 0.78)
+        bits = torch.full((t, n), 8.0, device=dev)
+        for k, row in ((0, 5), (1, 60)):
+            coef[k, row] = 0.0
+            if bad == "underflow":
+                g[k, row] = 0.0
+                bits[k, row] = 127.0       # L = 2^126 - 1: 1e-12 / L is 0
+            else:
+                g[k, row, d // 3] = float(bad)
+        before = dict(cuda_lib.LAUNCHES)
+        out = agg_ops.quantized_masked_aggregate(g, coef, u, bits)
+        assert cuda_lib.LAUNCHES["row_scale"] == before["row_scale"] + 1
+        assert (cuda_lib.LAUNCHES["quantized_masked_aggregate"]
+                == before["quantized_masked_aggregate"] + 1)
+        levels = agg_ref.quantizer_levels(bits)
+        plain = agg_ref.quantized_masked_aggregate_ref(
+            g, coef, u, agg_ops.row_scale(g, levels), levels)
+        assert _equal_with_nan(out, plain), d
+        assert bool(torch.isnan(plain[:2]).any())
+        assert bool(torch.isfinite(plain[2]).all())
+
+
 def test_quantized_loop_matches_sweep_on_the_card(dev):
     spec = dataclasses.replace(experiments.HIGH_BIAS, n_devices=12, n_train=300,
                                n_test=60)

@@ -236,6 +236,72 @@ def test_quantized_aggregate_batched_is_per_trajectory():
             rtol=0, atol=0)
 
 
+def sparse_coef(rng, n, live):
+    """Coefficients in (0, 1] on ``live`` of the n clients (a count, or
+    "22pct" of them, as a quantised sweep round has) and 0 elsewhere."""
+    coef = rng.uniform(0.01, 1.0, size=n).astype(np.float32)
+    keep = round(0.22 * n) if live == "22pct" else live
+    coef[rng.permutation(n)[keep:]] = 0.0
+    return coef
+
+
+@pytest.mark.parametrize("live", [0, 1, "22pct", 40])
+@pytest.mark.parametrize("per_client", [False, True])
+def test_quantized_aggregate_sparse_coefficients_match_reference(live,
+                                                                  per_client):
+    """No live client, one, about 22 % of them and all 40: the rows whose
+    coefficient is 0 add nothing, against the reference's Pallas kernel
+    in interpret mode and its oracle."""
+    rng = np.random.default_rng(11 + (live if isinstance(live, int) else 22))
+    n, d = 40, 300
+    g = rng.normal(size=(n, d)).astype(np.float32)
+    u = rng.uniform(size=(n, d)).astype(np.float32)
+    g[n // 2] = 0.0
+    coef = sparse_coef(rng, n, live)
+    bits = (rng.choice([1.0, 4.0, 8.0, NOT_WHOLE, 32.0], n).astype(np.float32)
+            if per_client else 8)
+    ref = np.asarray(ref_agg_ops.quantized_masked_aggregate(
+        jnp.asarray(g), jnp.asarray(coef), jnp.asarray(u),
+        jnp.asarray(bits) if per_client else bits, interpret=True))
+    got = agg_ops.quantized_masked_aggregate(
+        torch.from_numpy(g), torch.from_numpy(coef), torch.from_numpy(u),
+        torch.from_numpy(np.asarray(bits)) if per_client else bits).numpy()
+    assert int((coef != 0).sum()) == (round(0.22 * n) if live == "22pct"
+                                      else live)
+    np.testing.assert_allclose(got, ref, **Q_TOL)
+    oracle = ref_agg_ref.quantized_masked_aggregate_ref(
+        jnp.asarray(g), jnp.asarray(coef), jnp.asarray(u), jnp.asarray(bits))
+    np.testing.assert_allclose(got, np.asarray(oracle), **Q_TOL)
+    if live == 0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf, -np.inf])
+def test_quantized_aggregate_nonfinite_zero_coefficient_row_matches_reference(
+        bad):
+    """A client whose coefficient is 0 but whose row holds a NaN or an
+    inf: its scale is non-finite, 0 * Q(g) is NaN, and the reference's
+    sum is NaN.  Trajectory 0 holds such a row, trajectory 1 does not;
+    NaN at the same places in both outputs, every other value equal."""
+    rng = np.random.default_rng(5)
+    t, n, d = 2, 12, 300
+    g = rng.normal(size=(t, n, d)).astype(np.float32)
+    u = rng.uniform(size=(t, n, d)).astype(np.float32)
+    coef = np.stack([sparse_coef(rng, n, 4) for _ in range(t)])
+    dead = int(np.flatnonzero(coef[0] == 0)[0])
+    g[0, dead, 17] = bad
+    bits = rng.choice([4.0, 8.0, 16.0], (t, n)).astype(np.float32)
+    ref = np.stack([np.asarray(ref_agg_ops.quantized_masked_aggregate(
+        jnp.asarray(g[i]), jnp.asarray(coef[i]), jnp.asarray(u[i]),
+        jnp.asarray(bits[i]), interpret=True)) for i in range(t)])
+    got = agg_ops.quantized_masked_aggregate(
+        torch.from_numpy(g), torch.from_numpy(coef), torch.from_numpy(u),
+        torch.from_numpy(bits)).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    assert np.isnan(got[0]).all() and np.isfinite(got[1]).all()
+    np.testing.assert_allclose(got[1], ref[1], **Q_TOL)
+
+
 @pytest.mark.parametrize("bits", [4, "per_client"])
 def test_quantized_aggregate_pytree_matches_reference(bits):
     """CNN-shaped leaves, the reference's noise tree passed in."""
@@ -283,6 +349,31 @@ def test_wrappers_take_the_plain_version_on_cpu():
     with pytest.raises(ValueError, match="expected g and noise"):
         agg_ops.quantized_masked_aggregate_batched(g, coef, u[:, :3], scale,
                                                    levels)
+
+
+def test_row_scale_batched_takes_row_scale_on_cpu():
+    """On CPU tensors the scale pass is ``row_scale``, launches nothing,
+    and gives the reference's max(max|g|, 1e-12) / L, with NaN and inf
+    rows propagated and an all-zero row at 1e-12 / L."""
+    rng = np.random.default_rng(8)
+    g = rng.normal(size=(2, 5, 40)).astype(np.float32)
+    g[0, 1] = 0.0
+    g[0, 2, 7] = np.nan
+    g[1, 3, 0] = -np.inf
+    bits = rng.choice([1.0, 4.0, NOT_WHOLE, 32.0], (2, 5)).astype(np.float32)
+    levels = agg_ref.quantizer_levels(torch.from_numpy(bits))
+    before = dict(cuda_lib.LAUNCHES)
+    got = agg_ops.row_scale_batched(torch.from_numpy(g), levels)
+    assert cuda_lib.LAUNCHES == before
+    torch.testing.assert_close(got, agg_ops.row_scale(torch.from_numpy(g), levels),
+                               rtol=0, atol=0, equal_nan=True)
+    ref_levels = ref_agg_ref.quantizer_levels(jnp.asarray(bits))
+    ref = np.asarray(jnp.maximum(jnp.max(jnp.abs(jnp.asarray(g)), axis=-1),
+                                 1e-12) / ref_levels)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6)
+    assert bool(torch.isnan(got[0, 2])) and bool(torch.isinf(got[1, 3]))
+    with pytest.raises(ValueError, match="expected g"):
+        agg_ops.row_scale_batched(torch.from_numpy(g), levels[:, :3])
 
 
 def test_noise_streams_follow_the_generators():
