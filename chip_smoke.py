@@ -12,8 +12,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    each kernel function's registers, spills and shared memory, and the
    card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   slices' shapes and at ragged ones, within the stated tolerance;
-3. time each kernel with CUDA events (the decode attention, whose
+   slices' shapes and at ragged ones, within the stated tolerance (the
+   solve kernels bit for bit, also on adversarial elements and a padded
+   mixed batch);
+3. time each kernel with CUDA events (the solve kernels as device time
+   with their launches queued behind a spin kernel, beside the bound on
+   the steps their function needs on these inputs; the decode attention, whose
    launches are shorter than the host's cost of making them, and the SSD
    scan's passes by the profiler's device time; the quantised sum's two
    kernels as device time with their launches queued behind a spin
@@ -55,9 +59,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the kernel methods held to ``optimal`` / ``fused``, each instance to
    its own solve and padded slots to 0; then ``make_batch(
    "mega_fleet_100k", 8)`` (E = 800,000) and one ``metro_1m_users`` draw
-   (E = 1,000,000) through both kernel methods, every instance feasible,
-   timed beside the kernels' bound, the work their function needs
-   (``element_work``), and phase [1]'s count of the compiled loop;
+   (E = 1,000,000) through both kernel methods, every instance feasible;
+   each kernel timed on each batch (device time, ``queued_ms``) beside
+   the steps its function needs there (``needed_steps``: mean, max, the
+   mean of each warp's largest), the bound on them (``element_work``)
+   and on the fixed trip count, and phase [1]'s count of the compiled
+   loop on the warps' counts; a time below its bound fails;
 9. drive the fleet control plane (``repro_torch.serve``) at the
    reference demos' sizes: ``serve_demo``'s closed-loop stream (8
    drifting_metro cells of 64 devices, 8 rounds, Dinkelbach) warm against
@@ -113,14 +120,10 @@ FP32_OPS_PER_S = 67e12
 # TF32 on the tensor cores, dense; the SSD scan's 3xTF32 products make three
 # passes through them for each float32 product
 TF32_OPS_PER_S = 495e12
-# operations per element, counting each float32 arithmetic operation,
-# comparison, select and transcendental call as one (csrc/solve_common.cuh):
-# fused: init 18, then 50 steps of 38; selection: 61 feasibility tests of
-# 13, 60 bisection updates of 4, and 9 for P*
-FUSED_OPS = 18 + 50 * 38
-SELECTION_OPS = 61 * 13 + 60 * 4 + 9
-# Kernels 1-2's bound: the work their function needs (csrc/solve_common.cuh
-# as written), whatever code the compiler makes of it, in thread-level
+# Kernels 1-2's bound: the work their function needs on these inputs
+# (csrc/solve_common.cuh as written, each element's steps up to the first
+# that leaves its state unchanged: ``needed_steps``), whatever code the
+# compiler makes of it, in thread-level
 # instructions on the FP32/ALU pipes and on the special-function (MUFU)
 # pipe.  A multiply-add counts as one FFMA and a term that does not change
 # across steps once an element; loop control counts nothing.  Each
@@ -147,10 +150,14 @@ MUFU_PER_S = FP32_INSTR_PER_S * 16 / 128
 ISSUE_PER_CLOCK = 4
 MUFU_LANES_PER_CLOCK = 16
 SOLVE_STEPS = {"fused_solve": 50, "selection_solve": 60}   # N_ALT, N_BISECT
+# kernel 1's (n_iters, faithful_eq13_typo) held against its plain version
+FUSED_VARIANTS = ((50, False), (50, True), (7, False), (7, True), (2, False),
+                  (1, True))
 # quantised sum per element: a true division, floor, subtraction,
 # comparison, select, addition, max, min, two multiplies and an addition
 QUANT_OPS = 11
 SOLVE_TOL = 1e-5        # a* and P*: the reference's solver tolerance
+# kernels 1-2 against their plain versions: bit for bit (bit_err)
 AGG_TOL = 1e-5          # eq.-4 sum of O(1) values, same order of addition
 QUANT_TOL = 0.0         # the quantised sum: same arithmetic, same order
 DECODE_TOL = 2e-5       # decode attention: the reference's float32 tolerance
@@ -369,7 +376,8 @@ def loop_step(instrs: list) -> dict:
     exponentials) gives per-step counts /U.  Every instruction on the
     path counts once, predicated-off ones and the split multiply-adds of
     a ``--fmad=false`` build too: it counts this build's issue slots, not
-    the work the function needs (``element_work``)."""
+    the work the function needs (``element_work``).  A branch out of the
+    body (an element's exit once its state stops changing) ends no step."""
     index = {addr: i for i, (addr, _) in enumerate(instrs)}
 
     def ex2(lo, hi):
@@ -401,7 +409,8 @@ def loop_step(instrs: list) -> dict:
             if m:
                 target = index[int(m.group(1), 16)]
                 nexts = [target] if not text.startswith("@") else [i + 1, target]
-            paths = [r for r in (walk(j, seen) for j in nexts) if r is not None]
+            paths = [r for r in (walk(j, seen) for j in nexts
+                                 if head <= j <= end) if r is not None]
             best = min(paths) if paths else None
         memo[key] = None if best is None else (
             best[0] + 1, best[1] + opcode(text).startswith("MUFU"))
@@ -432,15 +441,16 @@ def solve_sass(torch, lib: Path) -> dict:
           f"{MUFU_LANES_PER_CLOCK} MUFU lanes a clock on each of "
           f"{out['sms']} SMs at {out['clock_hz'] / 1e6:.0f} MHz")
     for name, steps in SOLVE_STEPS.items():
-        instr, mufu = element_work(name, steps)
-        print(f"  {name}: the work its function needs, {instr} FP32/ALU and "
-              f"{mufu} MUFU instructions an element ({steps} steps; "
-              f"element_work)")
+        (i0, m0), (i1, m1) = element_work(name, 0), element_work(name, 1)
+        print(f"  {name}: the work its function needs, {i0} FP32/ALU and "
+              f"{m0} MUFU instructions an element, and {i1 - i0} and "
+              f"{m1 - m0} a step it needs (at most {steps}; element_work)")
     return out
 
 
 def element_work(name: str, steps: int) -> tuple[int, int]:
-    """(FP32/ALU, MUFU) instructions one element of kernel 1 or 2 needs.
+    """(FP32/ALU, MUFU) instructions one element of kernel 1 or 2 needs,
+    ``steps`` being the steps it needs (``needed_steps``).
 
     fused_solve: B tau and pg > 0 once, fused_init's a^0 (T(P^max) and
     eq. 13: 12 operations, 4 divisions, a log), then each of ``steps``
@@ -461,24 +471,27 @@ def element_work(name: str, steps: int) -> tuple[int, int]:
             div * DIV[1] + expm1 * EXPM1[1] + log * LOG[1])
 
 
-def solve_bound_ms(name: str, n: int) -> tuple[float, str]:
-    """Kernel 1 or 2's least time for ``n`` elements: the work its function
-    needs at the FP32/ALU pipes' rate or at the MUFU pipe's, or its bytes
-    (4 inputs read, 2 outputs written) at the memory's rate, whichever
-    is larger; and which of the three it is."""
-    instr, mufu = element_work(name, SOLVE_STEPS[name])
-    t, by = max((n * instr / FP32_INSTR_PER_S, "FP32 issue"),
-                (n * mufu / MUFU_PER_S, "MUFU"),
+def solve_bound_ms(name: str, n: int, steps: int) -> tuple[float, str]:
+    """Kernel 1 or 2's least time for ``n`` elements that need ``steps``
+    steps in all: the work its function needs (``element_work`` is linear
+    in the steps) at the FP32/ALU pipes' rate or at the MUFU pipe's, or its
+    bytes (4 inputs read, 2 outputs written) at the memory's rate,
+    whichever is larger; and which of the three it is."""
+    (i0, m0), (i1, m1) = element_work(name, 0), element_work(name, 1)
+    instr, mufu = n * i0 + steps * (i1 - i0), n * m0 + steps * (m1 - m0)
+    t, by = max((instr / FP32_INSTR_PER_S, "FP32 issue"),
+                (mufu / MUFU_PER_S, "MUFU"),
                 (6 * 4 * n / HBM_BYTES_PER_S, "bytes"))
     return t * 1e3, by
 
 
-def sass_issue_ms(sass: dict, name: str, n: int) -> float:
+def sass_issue_ms(sass: dict, name: str, warp_steps: int) -> float:
     """The compiled loop's steps (phase [1]'s SASS) at the SM's issue rate
-    and MUFU rate: what this build would take if it issued every cycle, a
-    diagnostic beside ``solve_bound_ms``, not a bound on the function."""
-    step, steps = sass[name], SOLVE_STEPS[name]
-    warps = math.ceil(n / 32) * steps
+    and MUFU rate, ``warp_steps`` warp-steps in all (a warp runs until its
+    slowest lane stops): what this build would take if it issued every
+    cycle, a diagnostic beside ``solve_bound_ms``, not a bound on the
+    function."""
+    step, warps = sass[name], warp_steps
     per_sm_clock = sass["sms"] * sass["clock_hz"]
     t_issue = warps * step["instructions"] / (ISSUE_PER_CLOCK * per_sm_clock)
     t_mufu = warps * step["mufu"] * 32 / (MUFU_LANES_PER_CLOCK * per_sm_clock)
@@ -488,6 +501,93 @@ def sass_issue_ms(sass: dict, name: str, n: int) -> float:
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def needed_steps(torch, name: str, els, kw):
+    """Each element's steps that kernel 1 or 2's function needs on these
+    operands (at the wrappers' defaults), counted by its plain version run
+    step by step: up to the first step that leaves the loop's state (the
+    fused fixed point's a; the bisection's lo and hi) bitwise unchanged,
+    after which every step repeats it, or the fixed trip count; no
+    bisection step where a = 1 is feasible (the reference discards its
+    lo)."""
+    from repro_torch.core.alternating import (FleetElements, _fused_step,
+                                              fused_init)
+    from repro_torch.kernels.selection_solve.ref import _feasible
+
+    def bits(x):
+        return x.view(torch.int32)
+    pg = els[0]
+    steps = torch.zeros(pg.shape, dtype=torch.int64, device=pg.device)
+    if name == "fused_solve":
+        el = FleetElements(*els)
+        kw = dict(kw, faithful_eq13_typo=False)
+        a, _ = fused_init(el, **kw)
+        live = torch.ones_like(pg, dtype=torch.bool)
+        for _ in range(SOLVE_STEPS[name]):
+            new, _, _ = _fused_step(a, el=el, power_solver="analytic", **kw)
+            steps += live
+            live &= bits(new) != bits(a)
+            a = new
+        return steps
+    args = (*els, kw["s_bits"], kw["tau"], kw["p_max"])
+    lo, hi = torch.zeros_like(pg), torch.ones_like(pg)
+    live = ~_feasible(hi, *args)
+    for _ in range(SOLVE_STEPS[name]):
+        mid = 0.5 * (lo + hi)
+        ok = _feasible(mid, *args)
+        new_lo, new_hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
+        steps += live
+        live &= (bits(new_lo) != bits(lo)) | (bits(new_hi) != bits(hi))
+        lo, hi = new_lo, new_hi
+    return steps
+
+
+def step_stats(torch, steps) -> dict:
+    """``needed_steps``' mean and max, the mean over warps (32 elements in
+    launch order) of each warp's largest count, and the two sums."""
+    warps = torch.cat([steps, steps.new_zeros(-steps.numel() % 32)])
+    warps = warps.view(-1, 32).amax(1)
+    return dict(mean=float(steps.double().mean()), max=int(steps.max()),
+                warp_mean=float(warps.double().mean()), total=int(steps.sum()),
+                warp_total=int(warps.sum()))
+
+
+def solve_times(torch, label: str, name: str, els, kw, reps: int,
+                sass: dict | None = None) -> dict:
+    """Kernel 1 or 2 on the flat operands ``els``: its device time
+    (``queued_ms``) beside its CUDA-event time, its plain version's time by
+    CUDA events (its thousands of launches a call fill the launch queue,
+    which ``queued_ms`` cannot outlast), the steps its function needs
+    (``needed_steps``), the bound on them and, labelled, on the fixed trip
+    count, and (given phase [1]'s ``sass``) the compiled loop's issue time
+    on the warps' largest counts.  Fails if the kernel reads below its
+    bound."""
+    from repro_torch.kernels.selection_solve import ops, ref
+    kern, plain = {"fused_solve": (ops.fused_solve, ref.fused_solve_ref),
+                   "selection_solve": (ops.selection_solve,
+                                       ref.selection_solve_ref)}[name]
+    n = els[0].numel()
+    st = step_stats(torch, needed_steps(torch, name, els, kw))
+    out = dict(n=n, steps=st, ms=queued_ms(torch, lambda: kern(*els, **kw), reps),
+               events_ms=cuda_ms(torch, lambda: kern(*els, **kw), reps),
+               plain_ms=cuda_ms(torch, lambda: plain(*els, **kw), 3))
+    out["bound_ms"], by = solve_bound_ms(name, n, st["total"])
+    out["bound_by"] = "bytes" if by == "bytes" else "operations"
+    out["fixed_bound_ms"], _ = solve_bound_ms(name, n, n * SOLVE_STEPS[name])
+    issue = (f"; the compiled loop at the issue rate on the warps' counts "
+             f"{sass_issue_ms(sass, name, st['warp_total']):.6f} ms" if sass else "")
+    print(f"  {label} {name:16s} E={n:>9,d}: needed steps mean {st['mean']:.3f}, "
+          f"max {st['max']}, warp max mean {st['warp_mean']:.3f} (of "
+          f"{SOLVE_STEPS[name]}); kernel {out['ms']:.6f} ms device time "
+          f"({out['events_ms']:.6f} by events); bound on the needed steps "
+          f"{out['bound_ms']:.6f} ms ({by}; the kernel at "
+          f"{out['bound_ms'] / out['ms']:.3f} of it), on {SOLVE_STEPS[name]} "
+          f"fixed steps {out['fixed_bound_ms']:.6f} ms{issue}; plain "
+          f"{out['plain_ms']:.6f} ms by events", flush=True)
+    check(out["ms"] >= out["bound_ms"], f"{label} {name}: {out['ms']} ms "
+          f"reads below its bound {out['bound_ms']} ms")
+    return out
 
 
 # ------------------------------------------------------------------ phases
@@ -500,32 +600,80 @@ def solver_elements(torch, n, tau, seed, dev):
                                      p.energy_budget_j, p.compute_energy())], p
 
 
+def batch_operands(batch):
+    """A batch's flattened element operands (pg, bw, emax, ec), as the
+    kernel methods hand them to kernels 1-2, and its scalars."""
+    from repro_torch.core.batch import batch_elements
+    el, p = batch_elements(batch), batch.problem
+    return ([x.reshape(-1).contiguous() for x in el[:4]],
+            dict(s_bits=p.grad_size_bits, tau=p.tau_th, p_max=p.p_max))
+
+
+# gains that no registry draw gives: NaN, +-inf, +-0, a negative, subnormals
+SPECIAL_GAINS = (math.nan, math.inf, -math.inf, 0.0, -0.0, -1e6, 1e-40, 1e-45)
+
+
+def adversarial_elements(torch, n: int, seed: int, dev):
+    """Flat operands and scalars for kernels 1-2's edge cases: the
+    reference kernel tests' distributions, and in every 16 elements one of
+    ``SPECIAL_GAINS`` as the gain, a zero energy budget, an element
+    feasible at a = 1 (a large gain and bandwidth), and a NaN or an inf in
+    the bandwidth, the budget or the compute energy."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pg, bw = rng.uniform(1e4, 1e8, n), rng.uniform(5e4, 5e6, n)
+    emax, ec = np.exp(rng.uniform(-7, 4, n)), np.exp(rng.uniform(-8, -2, n))
+    k = np.arange(n) % 16
+    for j, g in enumerate(SPECIAL_GAINS):
+        pg[k == j] = g
+    emax[k == 8] = 0.0
+    one = k == 9
+    pg[one], bw[one], emax[one], ec[one] = 1e12, 1e9, 1e3, 1e-6
+    bw[k == 10], emax[k == 11], ec[k == 12] = math.nan, math.inf, math.nan
+    return ([torch.from_numpy(x.astype(np.float32)).to(dev)
+             for x in (pg, bw, emax, ec)],
+            dict(s_bits=6.4e6, tau=0.08, p_max=1.0))
+
+
 def check_solvers(torch, dev) -> dict:
-    """Both solve kernels against their plain versions; returns the
-    largest errors and the problems used."""
+    """Both solve kernels against their plain versions, bit for bit (NaN
+    at the same places): sampled problems, adversarial elements and a
+    ragged mixed batch with its padded slots, kernel 1 at each of
+    ``FUSED_VARIANTS``.  Returns the largest errors (``bit_err``: 0.0)."""
+    from repro_torch.core.scenarios import make_mixed_batch
     from repro_torch.kernels.selection_solve import ops, ref
     errs = {"fused_solve": 0.0, "selection_solve": 0.0}
-    cases = [(100, 0.08, 2, False), (100, 0.5, 3, False), (1000, 0.3, 4, False),
-             (4099, 0.08, 5, False), (4099, 0.5, 6, True),
-             (1_000_000, 0.2, 7, False)]
-    for n, tau, seed, typo in cases:
+    sets = []
+    for n, tau, seed in ((100, 0.08, 2), (100, 0.5, 3), (1000, 0.3, 4),
+                         (4099, 0.08, 5), (4099, 0.5, 6), (1_000_000, 0.2, 7)):
         els, p = solver_elements(torch, n, tau, seed, dev)
-        kw = dict(s_bits=p.grad_size_bits, tau=p.tau_th, p_max=p.p_max)
-        pairs = [("fused_solve",
-                  ops.fused_solve(*els, **kw, faithful_eq13_typo=typo),
-                  ref.fused_solve_ref(*els, **kw, faithful_eq13_typo=typo))]
-        if not typo:
-            pairs.append(("selection_solve", ops.selection_solve(*els, **kw),
-                          ref.selection_solve_ref(*els, **kw)))
+        sets.append((f"sampled E={n:,} tau={tau}", els,
+                     dict(s_bits=p.grad_size_bits, tau=p.tau_th, p_max=p.p_max),
+                     True))
+    sets.append(("adversarial E=4,099", *adversarial_elements(torch, 4099, 8, dev),
+                 False))
+    batch = make_mixed_batch(MIXED_SCENARIOS, seed=0, device=dev)
+    sets.append((f"mixed x 5 E={batch.mask.numel():,} "
+                 f"({int((~batch.mask).sum()):,} padded)", *batch_operands(batch),
+                 True))
+    for label, els, kw, finite in sets:
+        runs = [("selection_solve", "", ops.selection_solve(*els, **kw),
+                 ref.selection_solve_ref(*els, **kw))]
+        for n_iters, typo in FUSED_VARIANTS:
+            fkw = dict(kw, n_iters=n_iters, faithful_eq13_typo=typo)
+            runs.append(("fused_solve", f" n_iters={n_iters} typo={typo}",
+                         ops.fused_solve(*els, **fkw), ref.fused_solve_ref(*els, **fkw)))
         torch.cuda.synchronize()
-        for name, (a, pw), (a_r, p_r) in pairs:
-            check(bool(torch.isfinite(a).all() and torch.isfinite(pw).all()),
-                  f"{name} E={n}: non-finite output")
-            err = max(float((a - a_r).abs().max()), float((pw - p_r).abs().max()))
-            print(f"  {name:16s} E={n:>9,d} tau={tau} typo={typo}: "
-                  f"max|kernel - plain| = {err:.3e} (tol {SOLVE_TOL:g})")
-            check(err <= SOLVE_TOL, f"{name} E={n}: error {err} > {SOLVE_TOL}")
+        for name, variant, got, want in runs:
+            err = max(bit_err(torch, g, w) for g, w in zip(got, want))
+            check(err == 0.0, f"{name} {label}{variant}: not bit for bit its "
+                  f"plain version (error {err})")
+            check(not finite or all(bool(torch.isfinite(x).all()) for x in got),
+                  f"{name} {label}{variant}: non-finite output")
             errs[name] = max(errs[name], err)
+        print(f"  {label}: both kernels bit for bit their plain versions (NaN "
+              f"at the same places), kernel 1 at {len(FUSED_VARIANTS)} "
+              f"(n_iters, typo) pairs")
     return errs
 
 
@@ -559,6 +707,18 @@ def nan_err(torch, got, want) -> float:
         return math.inf
     fin = torch.isfinite(w)
     return float((g[fin] - w[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def bit_err(torch, got, want) -> float:
+    """0.0 where ``got`` holds ``want``'s bits, and NaN (of any payload)
+    where it is NaN; else ``nan_err``, or inf where that reads 0 (a zero
+    of the other sign)."""
+    nan = torch.isnan(want)
+    if torch.equal(torch.isnan(got), nan) and torch.equal(
+            torch.where(nan, 0.0, got).view(torch.int32),
+            torch.where(nan, 0.0, want).view(torch.int32)):
+        return 0.0
+    return nan_err(torch, got, want) or math.inf
 
 
 def check_quantized(torch, dev) -> tuple[float, float]:
@@ -784,31 +944,17 @@ def time_kernels(torch, dev, sass: dict) -> dict:
     """Kernel, plain and library times at the slice's shapes."""
     from repro_torch.kernels.masked_aggregate import ops as agg_ops
     from repro_torch.kernels.masked_aggregate import ref as agg_ref
-    from repro_torch.kernels.selection_solve import ops, ref
     rec = {}
     for n in (100, 1_000_000):
         els, p = solver_elements(torch, n, 0.08, 2, dev)
         kw = dict(s_bits=p.grad_size_bits, tau=p.tau_th, p_max=p.p_max)
-        io_bytes = 6 * 4 * n                      # 4 inputs read, 2 outputs written
-        for name, kern, plain, ops_per in (
-                ("fused_solve", ops.fused_solve, ref.fused_solve_ref, FUSED_OPS),
-                ("selection_solve", ops.selection_solve,
-                 ref.selection_solve_ref, SELECTION_OPS)):
-            reps = 200 if n == 100 else 20
-            ms = cuda_ms(torch, lambda: kern(*els, **kw), reps)
-            plain_ms = cuda_ms(torch, lambda: plain(*els, **kw), max(reps // 20, 3))
-            old_ms, old_by = bound_ms(io_bytes, ops_per * n)
-            b_ms, b_by = solve_bound_ms(name, n)
-            print(f"  {name:16s} E={n:>9,d}: kernel {ms:.6f} ms, plain "
-                  f"{plain_ms:.6f} ms, bound {b_ms:.9f} ms ({b_by}; the "
-                  f"kernel at {b_ms / ms:.3f} of it); each operation one "
-                  f"float32 operation: {old_ms:.9f} ms ({old_by}); the "
-                  f"compiled loop at the issue rate "
-                  f"{sass_issue_ms(sass, name, n):.9f} ms")
+        for name in ("fused_solve", "selection_solve"):
+            t = solve_times(torch, "sampled", name, els, kw,
+                            200 if n == 100 else 20, sass)
             if n == 100:            # the slice's shape: one fleet of N = 100
-                rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by="bytes" if b_by == "bytes"
-                                 else "operations", library_ms=None)
+                rec[name] = dict(ms=t["ms"], plain_ms=t["plain_ms"],
+                                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                                 library_ms=None)
     # one round's eq.-4 sums: every CNN leaf at T = 16 trajectories, N = 100
     gen = torch.Generator(device=dev).manual_seed(1)
     gs = [torch.randn(16, 100, d, device=dev, generator=gen) for d in CNN_LEAVES]
@@ -1181,34 +1327,22 @@ def run_control_plane(torch, dev, card_line: str) -> None:
 
 
 def time_batched(torch, dev, batches, sass) -> None:
-    """Kernels 1-2 at the batched shapes (CUDA events): each kernel alone
-    on the batch's flattened elements, beside its bound, the compiled
-    loop's issue time and its plain version, and the whole
-    ``solve_joint_batch`` method; and the host's ``make_batch`` alone."""
-    from repro_torch.core.batch import batch_elements, solve_joint_batch
+    """Kernels 1-2 at the batched shapes: each kernel alone on the batch's
+    flattened elements (``solve_times``: device time, the steps its
+    function needs, its bound on them and on the fixed trip count, the
+    compiled loop's issue time, its plain version), the whole
+    ``solve_joint_batch`` method by CUDA events; and the host's
+    ``make_batch`` alone."""
+    from repro_torch.core.batch import solve_joint_batch
     from repro_torch.core.scenarios import make_batch
-    from repro_torch.kernels.selection_solve import ops, ref
-    kernels = {"selection_solve": (ops.selection_solve, ref.selection_solve_ref),
-               "fused_solve": (ops.fused_solve, ref.fused_solve_ref)}
     for label, batch in batches:
-        el = batch_elements(batch)
-        flat = [x.reshape(-1).contiguous() for x in el[:4]]
-        n = flat[0].numel()
-        kw = dict(s_bits=batch.problem.grad_size_bits,
-                  tau=batch.problem.tau_th, p_max=batch.problem.p_max)
+        flat, kw = batch_operands(batch)
         for method, name, _ in KERNEL_METHODS:
-            kern, plain = kernels[name]
-            ms = cuda_ms(torch, lambda: kern(*flat, **kw), 20)
-            plain_ms = cuda_ms(torch, lambda: plain(*flat, **kw), 3)
+            solve_times(torch, label, name, flat, kw, 20, sass)
             method_ms = cuda_ms(torch, lambda: solve_joint_batch(
                 batch, method=method), 5)
-            b_ms, b_by = solve_bound_ms(name, n)
-            print(f"  {label} {name:16s} E={n:>9,d}: kernel {ms:.6f} ms, "
-                  f"bound {b_ms:.6f} ms ({b_by}; the kernel at "
-                  f"{b_ms / ms:.3f} of it), the compiled loop at the issue "
-                  f"rate {sass_issue_ms(sass, name, n):.6f} ms, plain "
-                  f"{plain_ms:.6f} ms, solve_joint_batch(method={method!r}) "
-                  f"{method_ms:.6f} ms")
+            print(f"  {label} solve_joint_batch(method={method!r}) "
+                  f"{method_ms:.6f} ms (CUDA events)")
     for name, count in (("mega_fleet_100k", 8), ("metro_1m_users", 1)):
         times = []
         for _ in range(3):
@@ -2529,7 +2663,7 @@ def main() -> int:
     mamba2 = init_mamba2(torch, dev)
     errs["ssd_scan"] = check_ssd(torch, dev, *mamba2)
 
-    print("[3] times (CUDA events)" + at(), flush=True)
+    print("[3] times" + at(), flush=True)
     rec = time_kernels(torch, dev, sass)
     rec["swa_decode"] = time_decode(torch, dev)
     rec["ssd_scan"], ssd_ms = time_ssd(torch, dev)

@@ -1,16 +1,18 @@
 """The port's CUDA kernels on the card: each against its plain version.
 
 Every test here is marked ``cuda`` and skips without a GPU (the kernels
-have no CPU mode).  The file imports torch and ``repro_torch`` only, so
-it runs on a machine without JAX:
+have no CPU mode).  The file imports torch, ``repro_torch`` and the
+root's ``chip_smoke.py`` only, so it runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerances: the kernels compute in float32 with the plain versions'
-operation order and no FMA contraction, so they are expected to match
-bit for bit; the checks allow 1e-5 (the reference's solver tolerance)
-on a* and P*, and exact equality for the eq.-4 sums, plain and
-quantised, whose order of addition is the same; the decode attention
+operation order and no FMA contraction, so the solve kernels are held to
+their plain versions bit for bit (NaN at the same places; each element's
+loop stops once its state stops changing, which gives the fixed trip
+count's outputs exactly), on sampled problems, adversarial elements and
+a ragged mixed batch with its padded slots, and the eq.-4 sums, plain
+and quantised, whose order of addition is the same, exactly; the decode attention
 (swa_decode) at rtol = atol = 2e-5, the reference's float32 tolerance for
 its decode kernel (online softmax against the dense one); the SSD scan
 (ssd_scan) at 1e-4 against the sequential recurrence and 2e-4 against the
@@ -27,6 +29,8 @@ import dataclasses
 
 import pytest
 import torch
+
+import chip_smoke
 
 from repro_torch.configs import ARCHS
 from repro_torch.core.alternating import solve_joint
@@ -81,22 +85,44 @@ def _elements(n, tau, seed, dev):
     return els, dict(s_bits=p.grad_size_bits, tau=p.tau_th, p_max=p.p_max)
 
 
-@pytest.mark.parametrize("n,tau,typo", [(100, 0.08, False), (1000, 0.5, False),
-                                        (4099, 0.3, True)])
-def test_solve_kernels_match_plain_versions(dev, n, tau, typo):
-    els, kw = _elements(n, tau, n, dev)
+def _solve_kernels_match_plain_versions(els, kw, n_iters, typo):
     before = dict(cuda_lib.LAUNCHES)
-    a, p = solve_ops.fused_solve(*els, **kw, faithful_eq13_typo=typo)
-    a2, p2 = solve_ops.selection_solve(*els, **kw)
+    fkw = dict(kw, n_iters=n_iters, faithful_eq13_typo=typo)
+    fused = solve_ops.fused_solve(*els, **fkw)
+    exact = solve_ops.selection_solve(*els, **kw)
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES["fused_solve"] == before["fused_solve"] + 1
     assert cuda_lib.LAUNCHES["selection_solve"] == before["selection_solve"] + 1
-    for (got_a, got_p), (ref_a, ref_p) in (
-            ((a, p), solve_ref.fused_solve_ref(*els, **kw,
-                                               faithful_eq13_typo=typo)),
-            ((a2, p2), solve_ref.selection_solve_ref(*els, **kw))):
-        torch.testing.assert_close(got_a, ref_a, rtol=0, atol=SOLVE_TOL)
-        torch.testing.assert_close(got_p, ref_p, rtol=SOLVE_TOL, atol=SOLVE_TOL)
+    # bit for bit, NaN (of any payload) at the same places
+    for got, want in ((fused, solve_ref.fused_solve_ref(*els, **fkw)),
+                      (exact, solve_ref.selection_solve_ref(*els, **kw))):
+        assert [chip_smoke.bit_err(torch, g, w)
+                for g, w in zip(got, want)] == [0.0, 0.0]
+
+
+@pytest.mark.parametrize("n,tau,typo,n_iters", [
+    (100, 0.08, False, 50), (1000, 0.5, False, 50), (4099, 0.3, True, 50),
+    (4099, 0.3, False, 7), (1000, 0.08, True, 2), (100, 0.5, False, 1)])
+def test_solve_kernels_match_plain_versions(dev, n, tau, typo, n_iters):
+    els, kw = _elements(n, tau, n, dev)
+    _solve_kernels_match_plain_versions(els, kw, n_iters, typo)
+
+
+@pytest.mark.parametrize("typo", [False, True], ids=["eq13", "typo"])
+@pytest.mark.parametrize("n_iters", [1, 2, 7, 50])
+def test_solve_kernels_match_plain_versions_on_adversarial_elements(
+        dev, n_iters, typo):
+    els, kw = chip_smoke.adversarial_elements(torch, 4099, n_iters, dev)
+    _solve_kernels_match_plain_versions(els, kw, n_iters, typo)
+
+
+@pytest.mark.parametrize("typo,n_iters", [(False, 50), (True, 50), (False, 7)])
+def test_solve_kernels_match_plain_versions_on_a_padded_mixed_batch(
+        dev, typo, n_iters):
+    batch = make_mixed_batch(chip_smoke.MIXED_SCENARIOS, seed=0, device=dev)
+    assert not bool(batch.mask.all())
+    _solve_kernels_match_plain_versions(*chip_smoke.batch_operands(batch),
+                                        n_iters, typo)
 
 
 @pytest.mark.parametrize("t,n,d", [(1, 8, 33), (4, 100, 1000), (16, 100, 2490)])
