@@ -91,7 +91,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one round;
    and the entry points ``closed_loop_demo``, ``fading_rounds``,
    ``quickstart`` and ``compression_study`` on the card;
-11. print the kernel record, the card, and the last line
+11. drive the training slice (``repro_torch.launch.train``): a mamba2
+   train step on the card must raise (kernel 5 has no backward); the
+   driver at demo-100m's full width (116,411,136 parameters) on the card
+   against its own CPU run (B = 2, S = 64, 3 steps, the same parameters
+   and draws: loss 1e-5, grad_norm 1e-4, parameters within the steps'
+   learning rates); the driver at its defaults for 100 steps (cut from
+   300), resumed from its step-50 checkpoint bit for bit under
+   deterministic algorithms, with its step time, tokens/s and a profiled
+   idle share; gemma3-1b at full width, 2 steps at B = 16, S = 256, each
+   step's loss equal to ``lm_loss`` without autograd to 1e-5, and the peak
+   device memory.  No kernel lies on this path;
+12. print the kernel record, the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero without a CUDA device and
@@ -216,6 +227,30 @@ CLOSED_LOOP_GATED = ("expected_participants", "mean_participants", "mean_bits",
                      "total_energy_j", "completion_time_s")
 CLOSED_LOOP_OPERANDS_ROUND = 10    # the round whose kernel-4 operands are held
 QUANT_OPERANDS_ROUND = 10          # the quantised sweep's round held in [5]
+# phase [11]: training.  (a) the driver on the card against its own CPU run
+# at demo-100m's full width, cut to B = 2, S = 64 and 3 steps for the CPU's
+# sake; (b) the driver at its defaults (B = 16, S = 256, 64 clients,
+# tau 2.0), cut from 300 steps to 100 for the phase's time, resumed from
+# its step-50 checkpoint; profiled over 5 steps; (c) gemma3-1b at full
+# width, 2 steps at B = 16, S = 256
+TRAIN_CARD_CPU = ["--arch", "demo-100m", "--steps", "3", "--batch", "2",
+                  "--seq", "64", "--log-every", "1"]
+TRAIN_STEPS, TRAIN_DEFAULT_STEPS, TRAIN_CKPT = 100, 300, 50
+TRAIN_TIMED_FROM = 10          # the step time's median over steps 10-100
+TRAIN_FREE_STEPS = 20          # steps timed without deterministic algorithms
+TRAIN_PROFILED = 5
+GEMMA3_TRAIN = (16, 256, 2)    # B, S, steps
+# the CPU tests' tolerances (tests/test_torch_train.py): the loss 1e-5
+# relative; grad_norm 1e-4 (it sums the squares of gradients rounded to
+# bfloat16 on their way back through cast_bf16, where float32 sums in
+# another order flip a rounding now and then); after k steps every
+# parameter within k learning rates (a flipped gradient takes another
+# AdamW step, at most about lr) and all but 1e-3 of them within 1e-5
+TRAIN_LR = 3e-4
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = 1e-4
+TRAIN_PARAM_ATOL = 1e-5
+TRAIN_PARAM_SHARE = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -2608,6 +2643,313 @@ def run_closed_loop(torch, dev, card_line: str) -> dict:
     return dict(launches=launches)
 
 
+# ----------------------------------------------------------------- training
+
+def recorded_steps(record: list):
+    """A wrapper for ``make_train_step`` whose steps append their loss and
+    grad_norm to ``record``."""
+    def wrap(orig):
+        def make(*a, **k):
+            step, opt = orig(*a, **k)
+
+            def run(params, opt_state, batch):
+                out = step(params, opt_state, batch)
+                record.append((float(out[2]["loss"]), float(out[2]["grad_norm"])))
+                return out
+            return run, opt
+        return make
+    return wrap
+
+
+def recorded_draws(record: list):
+    """A wrapper for ``ProbabilisticScheduler.sample`` that keeps each
+    draw's mask and powers as host arrays."""
+    def wrap(orig):
+        def sample(self, state, generator, k=0):
+            draw = orig(self, state, generator, k)
+            record.append((draw.mask.cpu().numpy(), draw.power.cpu().numpy()))
+            return draw
+        return sample
+    return wrap
+
+
+def params_apart(torch, got, want, steps: int) -> tuple[float, float]:
+    """(largest |difference|, share of the elements beyond
+    TRAIN_PARAM_ATOL) of two parameter trees, checked against the step
+    tolerance after ``steps`` steps."""
+    from repro_torch.tree import tree_leaves
+    big = apart = total = 0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        d = (a.cpu() - b.cpu()).abs()
+        big = max(big, float(d.max()))
+        apart += int((d > TRAIN_PARAM_ATOL).sum())
+        total += d.numel()
+    check(big <= steps * TRAIN_LR and apart <= TRAIN_PARAM_SHARE * total,
+          f"parameters apart by up to {big:.3e}, {apart / total:.2e} of them "
+          f"beyond {TRAIN_PARAM_ATOL:g}")
+    return big, apart / total
+
+
+def train_card_against_cpu(torch, dev, tag: str) -> None:
+    """(a) The driver at demo-100m's full width on the card against its
+    own CPU run: the same seeded parameters, the card's draws handed to
+    the CPU run, the loss and grad_norm of every step and the parameters
+    at the end held at the CPU tests' tolerances."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import schedulers
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    cfg = get_arch("demo-100m")
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    host = tree_map(lambda t: t.cpu(), params)
+    draws, steps, cpu_steps = [], [], []
+    t0 = time.perf_counter()
+    with wrapped(schedulers.ProbabilisticScheduler, "sample", recorded_draws(draws)), \
+            wrapped(train, "make_train_step", recorded_steps(steps)):
+        card = train.run(train.parse_args(TRAIN_CARD_CPU), params=params)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with wrapped(train, "make_train_step", recorded_steps(cpu_steps)):
+        cpu = train.run(train.parse_args(TRAIN_CARD_CPU + ["--device", "cpu"]),
+                        draws=draws, params=host)
+    t_cpu = time.perf_counter() - t0
+    n = len(steps)
+    check(n == len(cpu_steps) == 3, f"{n} steps on the card, {len(cpu_steps)} "
+          f"on the CPU")
+    for k, ((loss, gn), (c_loss, c_gn)) in enumerate(zip(steps, cpu_steps)):
+        check(math.isfinite(loss) and abs(loss / c_loss - 1) <= TRAIN_LOSS_RTOL
+              and abs(gn / c_gn - 1) <= TRAIN_GNORM_RTOL,
+              f"step {k + 1}: loss {loss} / {c_loss}, grad_norm {gn} / {c_gn}")
+    for a, b in zip(card["history"], cpu["history"]):
+        check(abs(a["sim_time_s"] / b["sim_time_s"] - 1) <= SOLVE_TOL
+              and abs(a["sim_energy_j"] / b["sim_energy_j"] - 1) <= SOLVE_TOL,
+              f"sim time/energy apart at step {a['step']}: {a} / {b}")
+    big, share = params_apart(torch, card["params"], cpu["params"], n)
+    print(f"  (a) demo-100m full width, B=2 S=64, 3 steps, card against CPU: "
+          f"losses {[round(x[0], 6) for x in steps]} / "
+          f"{[round(x[0], 6) for x in cpu_steps]}, largest relative loss gap "
+          f"{max(abs(a[0] / b[0] - 1) for a, b in zip(steps, cpu_steps)):.2e} "
+          f"(tol {TRAIN_LOSS_RTOL:g}), grad_norm gap "
+          f"{max(abs(a[1] / b[1] - 1) for a, b in zip(steps, cpu_steps)):.2e} "
+          f"(tol {TRAIN_GNORM_RTOL:g}); parameters apart by up to {big:.3e} "
+          f"(tol {n} x lr = {n * TRAIN_LR:g}), {share:.2e} of them beyond "
+          f"{TRAIN_PARAM_ATOL:g} (tol {TRAIN_PARAM_SHARE:g}); card {t_card:.1f} s, "
+          f"CPU {t_cpu:.1f} s {tag}")
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """torch's deterministic algorithms (cuBLAS's workspace set for them)
+    inside the block."""
+    import os
+    key = "CUBLAS_WORKSPACE_CONFIG"
+    old = os.environ.get(key)
+    os.environ[key] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if old is None:
+            del os.environ[key]
+        else:
+            os.environ[key] = old
+
+
+def train_driver(torch, dev, tag: str) -> dict:
+    """(b) ``repro_torch.launch.train`` at its defaults on the card for
+    TRAIN_STEPS steps with a checkpoint at TRAIN_CKPT, then resumed from
+    that checkpoint in a second run: the restored state equals the saved
+    one and the continued run the uninterrupted one, bit for bit (both
+    under deterministic algorithms); every logged loss finite; the step
+    time, tokens/s and a profile of TRAIN_PROFILED steps."""
+    import numpy as np
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.checkpoint.checkpoint import _leaves_with_path
+    from repro_torch.data.lm import SyntheticLMData
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    base = ["--arch", "demo-100m", "--steps", str(TRAIN_STEPS),
+            "--ckpt-every", str(TRAIN_CKPT)]
+    print(f"  (b) the driver at its defaults (demo-100m, B=16 S=256, 64 "
+          f"clients, tau 2.0), {TRAIN_STEPS} steps: cut from "
+          f"{TRAIN_DEFAULT_STEPS} for the phase's time; checkpoint at step "
+          f"{TRAIN_CKPT}, then resumed from it")
+    with tempfile.TemporaryDirectory() as whole_dir, \
+            tempfile.TemporaryDirectory() as part_dir, deterministic(torch):
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        whole = train.run(train.parse_args(base + ["--ckpt-dir", whole_dir]))
+        torch.cuda.synchronize()
+        t_whole = time.perf_counter() - t0
+        launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+        check(not launches, f"the training path launched {launches}")
+        for suffix in ("json", "npz"):
+            name = f"ckpt_{TRAIN_CKPT:08d}.{suffix}"
+            (Path(part_dir) / name).write_bytes((Path(whole_dir) / name).read_bytes())
+        step0, params, opt_state, _ = ckpt.restore(
+            part_dir, params_template=whole["params"],
+            opt_template=whole["opt_state"])
+        stem = Path(part_dir) / f"ckpt_{TRAIN_CKPT:08d}"
+        saved = np.load(f"{stem}.npz")
+        trees = json.loads(Path(f"{stem}.json").read_text())["trees"]
+        pairs = [(trees[name][key], t) for name, tree in (("params", params),
+                                                          ("opt", opt_state))
+                 for key, t in _leaves_with_path(tree)]
+        check(step0 == TRAIN_CKPT and len(pairs) == sum(map(len, trees.values()))
+              and all(np.array_equal(t.cpu().numpy(), saved[arr])
+                      for arr, t in pairs),
+              "the restored state differs from the saved one")
+        t0 = time.perf_counter()
+        resumed = train.run(train.parse_args(base + ["--ckpt-dir", part_dir,
+                                                     "--resume"]))
+        t_resumed = time.perf_counter() - t0
+    tail = [h for h in whole["history"] if h["step"] > TRAIN_CKPT]
+    check(resumed["history"] == tail,
+          f"the resumed run's history differs: {resumed['history'][:2]} / {tail[:2]}")
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((resumed["params"], resumed["opt_state"])),
+        tree_leaves((whole["params"], whole["opt_state"]))))
+    check(same, "the resumed run's parameters or moments differ")
+    losses = [h["loss"] for h in whole["history"]]
+    check(all(math.isfinite(x) for x in losses), f"a non-finite loss: {losses}")
+    step_s = whole["step_s"][TRAIN_TIMED_FROM - 1:]
+    med = float(np.median(step_s))
+    tokens = 16 * 256
+    print(f"  uninterrupted: {TRAIN_STEPS} steps in {t_whole:.1f} s, losses "
+          f"{[round(x, 4) for x in losses]}; resumed at step {step0}: "
+          f"{TRAIN_STEPS - TRAIN_CKPT} steps in {t_resumed:.1f} s, restored "
+          f"state and the continued history, parameters and moments equal "
+          f"bit for bit; launches on the path: none")
+    print(f"  step time (median of steps {TRAIN_TIMED_FROM}-{TRAIN_STEPS}, "
+          f"deterministic algorithms, the round's host work included): "
+          f"{med * 1e3:.3f} ms (min {min(step_s) * 1e3:.3f}, max "
+          f"{max(step_s) * 1e3:.3f}), {tokens / med:.0f} tokens/s {tag}")
+    # the same driver without deterministic algorithms, for their cost
+    quick = train.run(train.parse_args(base[:2] + [
+        "--steps", str(TRAIN_TIMED_FROM + TRAIN_FREE_STEPS)]))
+    free = float(np.median(quick["step_s"][TRAIN_TIMED_FROM - 1:]))
+    print(f"  without deterministic algorithms (median of steps "
+          f"{TRAIN_TIMED_FROM}-{TRAIN_TIMED_FROM + TRAIN_FREE_STEPS}): "
+          f"{free * 1e3:.3f} ms, {tokens / free:.0f} tokens/s {tag}")
+
+    # where a step's time goes: TRAIN_PROFILED steps of make_train_step on
+    # the driver's batches, outside deterministic mode
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_train_step
+    cfg = get_arch("demo-100m")
+    step, _ = make_train_step(cfg, lr=TRAIN_LR, q_chunk=256)
+    data = SyntheticLMData(64, cfg.vocab, seed=1)
+    rng = np.random.default_rng(4)
+    batches = []
+    for _ in range(TRAIN_PROFILED):
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch(rng.integers(0, 64, 16), 256).items()}
+        b["loss_weights"] = torch.full((16,), 1 / 16, device=dev)
+        batches.append(b)
+    state = [whole["params"], whole["opt_state"]]
+
+    def steps_fn(_):
+        for b in batches:
+            state[0], state[1], _m = step(state[0], state[1], b)
+    steps_fn(0)
+    profile_run(torch, f"demo-100m train step (B=16 S=256) {tag}", steps_fn,
+                TRAIN_PROFILED, "step", None)
+    return dict(step_ms=med * 1e3)
+
+
+def train_gemma3(torch, dev, tag: str) -> None:
+    """(c) gemma3-1b at full width: GEMMA3_TRAIN steps, each step's loss
+    equal to ``lm_loss`` recomputed without autograd on the same pre-step
+    parameters (remat recomputes what the forward computed), finite
+    grad_norm, the peak device memory."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import SyntheticLMData
+    from repro_torch.launch.steps import cast_bf16, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models import zoo
+    from repro_torch.tree import tree_leaves
+    b, s, n_steps = GEMMA3_TRAIN
+    cfg = get_arch("gemma3-1b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    n = sum(x.numel() for x in tree_leaves(params))
+    check(n == zoo.param_count(cfg), f"{n} parameters")
+    step, opt = make_train_step(cfg, lr=TRAIN_LR, q_chunk=max(s, 128))
+    opt_state = opt.init(params)
+    data = SyntheticLMData(64, cfg.vocab, seed=1)
+    rng = np.random.default_rng(2)
+    rows = []
+    for k in range(n_steps):
+        batch = {key: torch.from_numpy(v).to(dev) for key, v in
+                 data.batch(rng.integers(0, 64, b), s).items()}
+        batch["loss_weights"] = torch.full((b,), 1 / b, device=dev)
+        with torch.no_grad():
+            want, _ = zoo.lm_loss(cfg, cast_bf16(params), batch, q_chunk=max(s, 128),
+                                  remat=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        rows.append((loss, float(want), gn, time.perf_counter() - t0))
+        check(math.isfinite(loss) and math.isfinite(gn),
+              f"gemma3-1b step {k + 1}: loss {loss}, grad_norm {gn}")
+        check(abs(loss / float(want) - 1) <= TRAIN_LOSS_RTOL,
+              f"gemma3-1b step {k + 1}: the step's loss {loss} against "
+              f"lm_loss without autograd {float(want)}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  (c) gemma3-1b full width ({n:,} parameters), B={b} S={s}, "
+          + "; ".join(f"step {k + 1}: loss {a:.6f} (no-grad lm_loss {w:.6f}, "
+                      f"rel {abs(a / w - 1):.2e}), grad_norm {g:.4f}, "
+                      f"{t * 1e3:.1f} ms" for k, (a, w, g, t) in enumerate(rows))
+          + f"; peak device memory {peak:.2f} GiB {tag}")
+    del params, opt_state, m
+
+
+def train_guard(torch, dev) -> None:
+    """(d) A mamba2 train step on the card raises: kernel 5 has no
+    backward, and its output would drop every gradient before it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    cfg = get_arch("mamba2-780m").reduced()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    step, opt = make_train_step(cfg, q_chunk=128)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    cuda_lib.reset_launch_counts()
+    try:
+        step(params, opt.init(params), {"tokens": tokens, "labels": tokens})
+    except NotImplementedError as e:
+        print(f"  (d) a mamba2-780m reduced() train step on the card raises "
+              f"NotImplementedError: {e}")
+    else:
+        fail("a mamba2 train step on the card ran through kernel 5, which "
+             "has no backward")
+    check(cuda_lib.LAUNCHES["ssd_scan"] == 0, "kernel 5 launched under autograd")
+
+
+def run_training(torch, dev, card_line: str) -> None:
+    """Phase [11]: the training slice (``launch.train``, ``make_train_step``)
+    on the card.  No TPU kernel lies on its path."""
+    tag = f"[{card_line}]"
+    t_phase = time.perf_counter()
+    train_guard(torch, dev)
+    train_card_against_cpu(torch, dev, tag)
+    train_driver(torch, dev, tag)
+    train_gemma3(torch, dev, tag)
+    print(f"  phase [11] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=None,
@@ -2725,6 +3067,10 @@ def main() -> int:
     print("[10] the drift-aware closed loop" + at(), flush=True)
     run_closed_loop(torch, dev, card_line)
 
+    print("[11] training: demo-100m and gemma3-1b at full width" + at(),
+          flush=True)
+    run_training(torch, dev, card_line)
+
     sources = {"fused_solve": ("src/repro_torch/csrc/selection_solve.cu",
                                "src/repro/kernels/selection_solve/kernel.py:143"),
                "selection_solve": ("src/repro_torch/csrc/selection_solve.cu",
@@ -2744,7 +3090,7 @@ def main() -> int:
                     launches=out["launches"][name], max_abs_err=errs[name],
                     **rec[name])
                for name, (src, rep) in sources.items()]
-    print(f"[11] done in {time.perf_counter() - t_start:.1f} s; peak device "
+    print(f"[12] done in {time.perf_counter() - t_start:.1f} s; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(card_line)

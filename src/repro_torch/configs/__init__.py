@@ -2,12 +2,17 @@
 runs.  The reference's other archs raise in ``get_arch`` until the slice
 that ports their blocks adds their config files."""
 from repro_torch.configs.base import INPUT_SHAPES, ArchConfig, InputShape
+from repro_torch.configs.demo_100m import CONFIG as _demo
 from repro_torch.configs.gemma3_1b import CONFIG as _gemma3
 from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
 
 ARCHS: dict[str, ArchConfig] = {cfg.name: cfg for cfg in [_gemma3, _mamba2]}
 
-NOT_PORTED = ("deepseek-v2-lite-16b", "demo-100m", "gemma2-27b",
+# + auxiliary configs usable via --arch but outside the reference's
+# assigned matrix
+EXTRA_ARCHS: dict[str, ArchConfig] = {_demo.name: _demo}
+
+NOT_PORTED = ("deepseek-v2-lite-16b", "gemma2-27b",
               "h2o-danube-3-4b", "internvl2-2b", "llama4-scout-17b-a16e",
               "phi3-medium-14b", "whisper-large-v3", "zamba2-7b")
 
@@ -15,15 +20,18 @@ NOT_PORTED = ("deepseek-v2-lite-16b", "demo-100m", "gemma2-27b",
 def get_arch(name: str) -> ArchConfig:
     if name in ARCHS:
         return ARCHS[name]
+    if name in EXTRA_ARCHS:
+        return EXTRA_ARCHS[name]
     if name in NOT_PORTED:
         raise KeyError(f"arch {name!r} is not ported yet; available: "
-                       f"{sorted(ARCHS)}")
-    raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
+                       f"{sorted(ARCHS) + sorted(EXTRA_ARCHS)}")
+    raise KeyError(f"unknown arch {name!r}; available: "
+                   f"{sorted(ARCHS) + sorted(EXTRA_ARCHS)}")
 
 
 def get_shape(name: str) -> InputShape:
     return INPUT_SHAPES[name]
 
 
-__all__ = ["ARCHS", "INPUT_SHAPES", "ArchConfig", "InputShape",
+__all__ = ["ARCHS", "EXTRA_ARCHS", "INPUT_SHAPES", "ArchConfig", "InputShape",
            "get_arch", "get_shape"]

@@ -5,7 +5,8 @@ reference's model parameters, problem or solver state converts them to
 numpy first (``np.asarray`` leafwise) and hands them in here; the layouts
 are the reference's (HWIO conv weights, ``[N]``/``[N, K]`` problem
 leaves, the transformer's ``[d_in, d_out]`` weights with stacked
-``reps`` leaves, ``(a, power)`` warm starts shaped like the solution).
+``reps`` leaves and AdamW's moments in their tree, ``(a, power)`` warm
+starts shaped like the solution).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from repro_torch.core.alternating import WarmStart
 from repro_torch.core.multicell import CoupledDuals
 from repro_torch.core.problem import _TENSOR_FIELDS, WirelessFLProblem
 from repro_torch.device import resolve_device
+from repro_torch.optim.optimizers import AdamState
 from repro_torch.tree import tree_map
 
 
@@ -37,6 +39,18 @@ def params_from_numpy(tree, device=None) -> dict:
 def params_to_numpy(tree) -> dict:
     """The inverse of :func:`params_from_numpy`."""
     return tree_map(lambda x: x.detach().cpu().numpy(), tree)
+
+
+def adam_state_from_numpy(state, device=None) -> AdamState:
+    """An AdamW state from host arrays: ``state`` has the reference's
+    fields ``mu`` and ``nu`` (trees of the parameters' structure) and
+    ``count``; the moments keep their float32, the count becomes an int32
+    0-dim tensor, all on ``device``."""
+    dev = resolve_device(device)
+    return AdamState(mu=params_from_numpy(state.mu, dev),
+                     nu=params_from_numpy(state.nu, dev),
+                     count=torch.tensor(int(np.asarray(state.count)),
+                                        dtype=torch.int32, device=dev))
 
 
 def problem_from_numpy(fields: dict, device=None) -> WirelessFLProblem:

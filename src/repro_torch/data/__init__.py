@@ -1,1 +1,2 @@
-"""Datasets and client partitions (numpy), as in ``repro.data``."""
+"""Datasets, the synthetic LM corpus and client partitions (numpy), as in
+``repro.data``."""

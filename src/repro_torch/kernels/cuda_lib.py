@@ -146,3 +146,23 @@ def check_operands(*tensors: torch.Tensor, shape=None) -> None:
             raise ValueError("kernel operands must be contiguous")
         if shape is not None and tuple(x.shape) != tuple(shape):
             raise ValueError(f"operand shape {tuple(x.shape)} != {tuple(shape)}")
+
+
+# the slice that brings each kernel's backward
+BACKWARD_SLICE = {"ssd_scan": "the mamba2-training slice (a backward for "
+                              "kernel 5)",
+                  "swa_decode": "a slice that trains through decode "
+                                "attention (a backward for kernel 6)"}
+
+
+def refuse_autograd(kernel: str, *tensors) -> None:
+    """Raise where autograd records and an operand requires its gradient:
+    the kernels have no backward, so their outputs would carry no
+    ``grad_fn`` and every gradient before them would be dropped without
+    a word."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"the {kernel} kernel has no backward yet, so it cannot run "
+            f"under autograd on the card; that comes with "
+            f"{BACKWARD_SLICE[kernel]}")

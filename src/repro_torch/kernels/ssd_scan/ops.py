@@ -3,9 +3,11 @@
 
 ``ssd_apply`` takes the model's layout (x [B,S,H,P], dt [B,S,H], B/C
 [B,S,N] shared by the heads).  For CPU tensors it runs the plain chunked
-version of ``ref.py``; for CUDA tensors it launches the kernels of
+version of ``ref.py``, which autograd differentiates (mamba2 trains
+through it on the CPU); for CUDA tensors it launches the kernels of
 ``csrc/ssd_scan.cu`` on the current stream (four passes, chunks in
-parallel; ``ref.ssd_passes_ref`` mirrors them), or raises.  The kernels
+parallel; ``ref.ssd_passes_ref`` mirrors them), or raises, also under
+autograd: the kernels have no backward yet.  The kernels
 read B/C by batch row and x/dt in place: unlike the reference's wrapper
 they neither repeat B/C over the heads nor transpose x.  The wrapper
 allocates the passes' scratch: C.B^T once per (batch row, chunk), the
@@ -16,7 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.cuda_lib import LAUNCHES, check_operands, launch
+from repro_torch.kernels.cuda_lib import (LAUNCHES, check_operands, launch,
+                                         refuse_autograd)
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 
 # the kernels' shared-memory tiles hold at most these
@@ -55,6 +58,7 @@ def ssd_apply(x, dt, a, b_mat, c_mat, d_skip, *, chunk: int = 128,
                                    init_state)
         return (y, state) if return_state else y
     operands = [x, dt, a, b_mat, c_mat, d_skip]
+    refuse_autograd("ssd_scan", *operands, init_state)
     check_operands(*operands, *([] if init_state is None else [init_state]))
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]

@@ -4,7 +4,8 @@
 ``swa_decode`` takes the kernel's own layout, q [B, Hkv, G, dh]
 pre-scaled by dh^-0.5.  For CPU tensors it runs the plain version of
 ``ref.py``; for CUDA tensors it launches the kernel of
-``csrc/swa_decode.cu`` on the current stream, or raises.  The kernel
+``csrc/swa_decode.cu`` on the current stream, or raises (also under
+autograd: the kernel has no backward).  The kernel
 splits the ring across blocks (``split_count`` picks how many; the GPU
 tests launch it at other counts through ``_launch``, whose plain mirror is
 ``ref.swa_decode_split_ref``).  ``decode_attention`` views the decode
@@ -19,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.cuda_lib import LAUNCHES, check_operands, launch
+from repro_torch.kernels.cuda_lib import (LAUNCHES, check_operands, launch,
+                                         refuse_autograd)
 from repro_torch.kernels.swa_decode.ref import swa_decode_ref
 
 # the kernel keeps G query rows of dh values per lane group in registers
@@ -94,6 +96,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_shapes(q, k, v, pos_buf)
     bsz, hkv, g, dh = q.shape
     w = k.shape[1]
+    refuse_autograd("swa_decode", q, k, v)
     check_operands(q, k, v)
     if (pos_buf.dtype != torch.int32 or pos_buf.device != q.device
             or not pos_buf.is_contiguous()):

@@ -1,2 +1,3 @@
-"""Launchers, as ``repro.launch``: the serve and prefill step builders and
-the batched greedy server.  Training comes with a later slice."""
+"""Launchers, as ``repro.launch``: the train, serve and prefill step
+builders, the training launcher (``train``) and the batched greedy
+server."""

@@ -2,7 +2,10 @@
 
 Functional: ``*_init(generator, ..., device) -> params`` and
 ``*_apply(params, ...)`` over nested dicts of tensors, with the
-reference's names, shapes and float32 arithmetic.  Attention supports:
+reference's names, shapes and float32 arithmetic.  Mixed dtypes promote
+as jax promotes them: a product of a float32 activation with a bfloat16
+weight (the training step's ``cast_bf16`` parameters) is a float32
+product on the weight's bfloat16 values (``dot``).  Attention supports:
 
 * GQA (q heads grouped over fewer kv heads; kv repeated to the q-head
   count, or the grouped form under ``GQA_GROUPED``),
@@ -36,6 +39,13 @@ NEG_INF = -1e30
 def _normal(gen, shape, scale, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=device) * scale
+
+
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, as jax's ``@`` computes
+    it (torch refuses mixed dtypes); the same tensors when they agree."""
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dtype) @ w.to(dtype)
 
 
 # ------------------------------------------------------------------- norms
@@ -100,10 +110,10 @@ def mlp_init(gen, d_model: int, d_ff: int, device=None) -> Params:
 
 
 def mlp_apply(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    gate = x @ params["w1"]
+    gate = dot(x, params["w1"])
     # jax.nn.gelu's default is the tanh approximation; torch's is exact
     gate = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
-    return (gate * (x @ params["w3"])) @ params["w2"]
+    return dot(gate * dot(x, params["w3"]), params["w2"])
 
 
 # --------------------------------------------------------------- attention
@@ -240,9 +250,9 @@ def attn_apply(params: Params, x: torch.Tensor, positions: torch.Tensor,
     arguments come with the encoder-decoder slice)."""
     b, s, _ = x.shape
     h, kvh, dh = spec.n_heads, spec.n_kv_heads, spec.d_head
-    q = (x @ params["wq"]).reshape(b, s, h, dh)
-    k = (x @ params["wk"]).reshape(b, s, kvh, dh)
-    v = (x @ params["wv"]).reshape(b, s, kvh, dh)
+    q = dot(x, params["wq"]).reshape(b, s, h, dh)
+    k = dot(x, params["wk"]).reshape(b, s, kvh, dh)
+    v = dot(x, params["wv"]).reshape(b, s, kvh, dh)
     if spec.qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
@@ -250,7 +260,7 @@ def attn_apply(params: Params, x: torch.Tensor, positions: torch.Tensor,
         q = rope(q, positions, spec.theta)
         k = rope(k, positions, spec.theta)
     out = multihead_attention(q, k, v, positions, positions, spec, q_chunk)
-    return out.reshape(b, s, h * dh) @ params["wo"]
+    return dot(out.reshape(b, s, h * dh), params["wo"])
 
 
 # ----------------------------------------------------------- KV cache path

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_apply
-from repro_torch.models.layers import Params, _normal, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import Params, _normal, dot, rmsnorm, rmsnorm_init
 
 
 def _dims(d_model: int, cfg: SSMConfig):
@@ -87,15 +87,17 @@ def ssd_inputs(params: Params, x: torch.Tensor, cfg: SSMConfig):
     dt, a, B, C, D) of a Mamba2 block on x [B,S,d_model]."""
     d_model = x.shape[-1]
     _, n_heads, _ = _dims(d_model, cfg)
-    z = x @ params["in_z"]
-    xs = _causal_conv(x @ params["in_x"], params["conv_x"], params["conv_bias_x"])
-    b_mat = _causal_conv(x @ params["in_b"], params["conv_b_"], params["conv_bias_b"])
-    c_mat = _causal_conv(x @ params["in_c"], params["conv_c_"], params["conv_bias_c"])
-    dt = F.softplus(x @ params["in_dt"] + params["dt_bias"])
+    z = dot(x, params["in_z"])
+    xs = _causal_conv(dot(x, params["in_x"]), params["conv_x"], params["conv_bias_x"])
+    b_mat = _causal_conv(dot(x, params["in_b"]), params["conv_b_"], params["conv_bias_b"])
+    c_mat = _causal_conv(dot(x, params["in_c"]), params["conv_c_"], params["conv_bias_c"])
+    dt = F.softplus(dot(x, params["in_dt"]) + params["dt_bias"])
     a = -torch.exp(params["A_log"])
     bsz, s = x.shape[:2]
     xs = xs.reshape(bsz, s, n_heads, cfg.head_dim)
-    return z, (xs, dt, a, b_mat, c_mat, params["D"])
+    # a and D enter the scan promoted to the activations' dtype, as the
+    # reference's products with them promote (bfloat16 under cast_bf16)
+    return z, (xs, dt, a.to(xs.dtype), b_mat, c_mat, params["D"].to(xs.dtype))
 
 
 def mamba_apply(params: Params, x: torch.Tensor, cfg: SSMConfig,
@@ -106,7 +108,7 @@ def mamba_apply(params: Params, x: torch.Tensor, cfg: SSMConfig,
     y, state = ssd_chunked(*operands, cfg.chunk, init_state)
     y = y.reshape(bsz, s, cfg.d_inner(d_model))
     y = rmsnorm(params["norm"], y * F.silu(z))
-    out = y @ params["out_proj"]
+    out = dot(y, params["out_proj"])
     if return_state:
         return out, state
     return out

@@ -5,8 +5,9 @@ The parameter tree is the reference's: ``"stack"`` holds the repeating
 period's layers (``{"l0": ..., "l1": ...}``) with every leaf carrying a
 leading ``reps`` axis, and the irregular ``"prefix"``/``"tail"`` layers
 (gemma3's 26 = 4*6 + 2) are lists.  A Python loop over ``reps`` takes the
-place of the reference's ``lax.scan``; its remat and sharding constraints
-have no counterpart in one-device inference.
+place of the reference's ``lax.scan``; the reference's remat of its scan
+body becomes ``torch.utils.checkpoint`` around each repeated unit (its
+sharding constraints have no counterpart on one device).
 
 Embedding tables are padded to a multiple of 256 rows; logits beyond the
 true vocab are masked to the dtype's minimum at decode.
@@ -18,15 +19,18 @@ MLPs, the whisper encoder and the vision prefix raise
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 Params = dict
 LayerKind = tuple  # (mixer, mlp) e.g. ("attn", "dense")
@@ -185,8 +189,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 
 def _embed_inputs(cfg: ArchConfig, params: Params, batch: dict) -> torch.Tensor:
+    # the reference scales by a numpy float32, which jax does not treat as
+    # weakly typed: bfloat16 rows times it are float32
+    rows = params["embed"][batch["tokens"]]
     scale = float(np.sqrt(cfg.d_model).astype(np.float32))
-    return params["embed"][batch["tokens"]] * scale
+    return rows.to(torch.promote_types(rows.dtype, torch.float32)) * scale
 
 
 def _unembed(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -198,10 +205,47 @@ def _unembed(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+# "dots" remat saves the outputs of the weight products (2-D ``mm``; the
+# reference's ``dots_with_no_batch_dims_saveable``) and recomputes the rest
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, remat):
+    """``fn`` under the reference's remat option: True / "full" saves
+    nothing of its inside for the backward, "dots" saves the weight
+    products' outputs, False is ``fn`` itself."""
+    if not remat:
+        return fn
+    if remat == "dots":
+        return partial(checkpoint, fn, use_reentrant=False,
+                       context_fn=partial(create_selective_checkpoint_contexts,
+                                          _save_dots))
+    if remat is True or remat == "full":
+        return partial(checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"remat must be True, 'full', 'dots' or False, got {remat!r}")
+
+
+def _units(stack: Params, reps: int) -> list[Params]:
+    """The stacked layers' parameters, one tree per repetition (views:
+    one ``unbind`` a leaf, so the backward gathers each leaf's gradient
+    once)."""
+    parts = {id(a): a.unbind(0) for a in tree_leaves(stack)}
+    return [tree_map(lambda a: parts[id(a)][r], stack) for r in range(reps)]
+
+
 def forward(cfg: ArchConfig, params: Params, batch: dict,
-            q_chunk: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+            q_chunk: int = 1024, remat=True) -> tuple[torch.Tensor, torch.Tensor]:
     """batch: tokens [B,S].  Returns (logits [B,S,V], aux[3]); aux holds
-    the MoE losses, zeros for the dense blocks."""
+    the MoE losses, zeros for the dense blocks.
+
+    ``remat`` (True / "full", "dots" or False, as the reference's) applies
+    to each repeated unit of ``params["stack"]`` while autograd records;
+    it changes no number."""
     _check_supported(cfg)
     plan = layer_plan(cfg)
     x = _embed_inputs(cfg, params, batch)
@@ -209,10 +253,16 @@ def forward(cfg: ArchConfig, params: Params, batch: dict,
     ctx = FwdCtx(positions=positions, q_chunk=q_chunk)
     for lp, kind in zip(params.get("prefix", []), plan.prefix):
         x = apply_layer(lp, x, cfg, kind, ctx)
-    for r in range(plan.reps):
-        unit_params = tree_map(lambda a: a[r], params["stack"])
+
+    def unit(x, unit_params):
         for j, kind in enumerate(plan.unit):
             x = apply_layer(unit_params[f"l{j}"], x, cfg, kind, ctx)
+        return x
+
+    if plan.reps:
+        body = _remat(unit, remat) if torch.is_grad_enabled() else unit
+        for unit_params in _units(params["stack"], plan.reps):
+            x = body(x, unit_params)
     for lp, kind in zip(params.get("tail", []), plan.tail):
         x = apply_layer(lp, x, cfg, kind, ctx)
     aux = torch.zeros((3,), dtype=torch.float32, device=x.device)

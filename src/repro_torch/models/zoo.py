@@ -1,6 +1,9 @@
-"""Model-zoo API, as ``repro.models.zoo``: parameter counting and batch
-construction for the blocks the port runs.  The loss (``lm_loss``) comes
-with the training slice."""
+"""Model-zoo API, as ``repro.models.zoo``: parameter counting, the loss
+and batch construction for the blocks the port runs.
+
+The FL integration: ``lm_loss`` takes per-example ``loss_weights`` that
+encode alpha_i * m_i of the paper's eq. (4), so the gradient of the
+weighted loss is the FedSGD server sum."""
 from __future__ import annotations
 
 import numpy as np
@@ -23,6 +26,37 @@ def grad_size_bits(cfg: ArchConfig, bits_per_param: int = 32) -> float:
     """Uplink payload S for the paper's problem (7): the gradient of the
     trainable parameters."""
     return float(param_count(cfg)) * bits_per_param
+
+
+def lm_loss(cfg: ArchConfig, params, batch: dict,
+            q_chunk: int = 1024, remat=True,
+            aux_coef: tuple[float, float] = (1e-2, 1e-3)):
+    """Next-token CE with optional per-example FL weights, as the
+    reference's: the float32 log-softmax over all ``padded_vocab``
+    columns, -100 labels masked, each example's mean over its valid
+    tokens, then ``sum(per_example * loss_weights)`` (else the mean), plus
+    the aux terms (zeros for the dense blocks).
+
+    batch: tokens [B,S], labels [B,S] (-100 = masked), optional
+    loss_weights [B].  Returns (loss, {"ce", "load_balance", "z_loss",
+    "moe_dropped"})."""
+    if cfg.frontend is not None and cfg.frontend.kind == "vision":
+        raise NotImplementedError("the vision prefix's label padding comes "
+                                  "with the internvl2-2b slice")
+    logits, aux = T.forward(cfg, params, batch, q_chunk=q_chunk, remat=remat)
+    labels = batch["labels"]
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0).to(torch.int64)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, 0.0)
+    per_example = nll.sum(-1) / torch.clamp(valid.sum(-1), min=1)     # [B]
+    w = batch.get("loss_weights")
+    loss = per_example.mean() if w is None else torch.sum(per_example * w)
+    lb, z, dropped = aux[0], aux[1], aux[2]
+    total = loss + aux_coef[0] * lb + aux_coef[1] * z
+    return total, {"ce": loss, "load_balance": lb, "z_loss": z,
+                   "moe_dropped": dropped}
 
 
 def make_batch(cfg: ArchConfig, shape: InputShape, rng: np.random.Generator,

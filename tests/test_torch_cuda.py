@@ -917,3 +917,74 @@ def test_quantized_kernel_on_drop_zeroed_coefficients(dev, monkeypatch):
                                                            scale, levels)
             assert torch.equal(out, plain), k
     assert n_lost > 0
+
+
+# ------------------------------------------------------- training on the card
+# The kernels have no backward: under autograd their wrappers raise rather
+# than return an output without ``grad_fn`` (which would drop every
+# gradient before them).  The dense training path runs no kernel and is
+# held against the port's own CPU step at the CPU tests' tolerances
+# (``tests/test_torch_train.py``): loss 1e-5, grad_norm 1e-4, parameters
+# within lr and all but 1e-3 of them within 1e-5.
+
+def test_ssd_scan_refuses_autograd_on_the_card(dev):
+    ops, _ = chip_smoke.ssd_operands(torch, dev, 1, 64, 2, 32, 16, seed=0)
+    x = ops[0].clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="kernel 5"):
+        ssd_ops.ssd_apply(x, *ops[1:], chunk=32)
+    with torch.no_grad():
+        ssd_ops.ssd_apply(x, *ops[1:], chunk=32)
+
+
+def test_swa_decode_refuses_autograd_on_the_card(dev):
+    q, k, v = chip_smoke.decode_operands(torch, dev, 2, 64, 1, 4, 64, seed=0)
+    qpos = 70
+    pos = chip_smoke.ring_positions(torch, 64, qpos, dev)
+    with pytest.raises(NotImplementedError, match="kernel 6"):
+        swa_ops.swa_decode(q.clone().requires_grad_(True), k, v, pos, qpos,
+                           window=None)
+    swa_ops.swa_decode(q, k, v, pos, qpos, window=None)
+
+
+def test_mamba2_train_step_raises_on_the_card(dev):
+    from repro_torch.launch.steps import make_train_step
+    cfg = ARCHS["mamba2-780m"].reduced()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    step, opt = make_train_step(cfg, q_chunk=128)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    with pytest.raises(NotImplementedError, match="kernel 5"):
+        step(params, opt.init(params), {"tokens": tokens, "labels": tokens})
+
+
+def test_dense_train_step_on_the_card_matches_the_cpu(dev):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_train_step
+    cfg = get_arch("demo-100m").reduced()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    host = tree_map(lambda t: t.cpu(), params)
+    step, opt = make_train_step(cfg, lr=3e-4, q_chunk=128)
+    state, host_state = opt.init(params), opt.init(host)
+    gen = torch.Generator().manual_seed(2)
+    before = dict(cuda_lib.LAUNCHES)
+    for _ in range(3):
+        tokens = torch.randint(0, cfg.vocab, (4, 64), generator=gen)
+        w = torch.rand(4, generator=gen)
+        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1),
+                 "loss_weights": w / w.sum()}
+        params, state, m = step(params, state,
+                                {k: t.to(dev) for k, t in batch.items()})
+        host, host_state, hm = step(host, host_state, batch)
+        torch.testing.assert_close(m["loss"].cpu(), hm["loss"], rtol=1e-5, atol=0)
+        torch.testing.assert_close(m["grad_norm"].cpu(), hm["grad_norm"],
+                                   rtol=1e-4, atol=0)
+    apart = total = 0
+    for a, b in zip(tree_leaves(params), tree_leaves(host)):
+        d = (a.cpu() - b).abs()
+        assert float(d.max()) <= 3 * 3e-4
+        apart += int((d > 1e-5).sum())
+        total += d.numel()
+    assert apart <= 1e-3 * total
+    assert dict(cuda_lib.LAUNCHES) == before     # no kernel on this path
