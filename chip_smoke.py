@@ -102,7 +102,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    idle share; gemma3-1b at full width, 2 steps at B = 16, S = 256, each
    step's loss equal to ``lm_loss`` without autograd to 1e-5, and the peak
    device memory.  No kernel lies on this path;
-12. print the kernel record, the card, and the last line
+12. the analysis gate (``repro_torch.analysis``) on the card: the
+   rank-contract sweep (486 combinations, every round column bitwise the
+   column-sliced rank-1 problem's) with no finding, and each of the five
+   registered hot paths (``solve_joint_fused``, ``solve_joint_batch``,
+   ``fleet_service_step``, ``scan_engine_sweep``,
+   ``scan_engine_strategies``) with its launch counts zeroed just before
+   it: no build and no load of the kernel library in its steady call,
+   its host reads and its waits for the card within their forms
+   (``analysis/budgets.json``), kernel 3 launched in both sweep paths'
+   steady calls, and one line each with the counts, the units and the
+   steady call's wall time (median of 5);
+13. print the kernel record, the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero without a CUDA device and
@@ -251,6 +262,11 @@ TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GNORM_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-5
 TRAIN_PARAM_SHARE = 1e-3
+# phase [12]: kernel 3's launches in each sweep path's steady call, one a
+# parameter leaf a round for all trajectories together, over 3 rounds
+# (scan_engine_strategies runs two sweeps); steady calls timed
+ANALYSIS_KERNEL3 = {"scan_engine_sweep": 8 * 3, "scan_engine_strategies": 8 * 3 * 2}
+ANALYSIS_REPS = 5
 
 
 def fail(msg: str) -> None:
@@ -2950,6 +2966,51 @@ def run_training(torch, dev, card_line: str) -> None:
     print(f"  phase [11] {time.perf_counter() - t_phase:.1f} s")
 
 
+def run_analysis(torch, dev, card_line: str) -> None:
+    """Phase [12]: the analysis gate on the card.  The rank-contract sweep,
+    then each registered hot path, its launch counts zeroed just before
+    it, held to its budgets (``hotpaths.check_budget``)."""
+    from repro_torch.analysis import hotpaths
+    from repro_torch.analysis.rank import sweep_rank_contract
+    from repro_torch.kernels import cuda_lib
+    tag = f"[{card_line}]"
+    t_phase = time.perf_counter()
+    findings, stats = sweep_rank_contract(device=dev)
+    check(stats["n_combos"] == 486 and not findings,
+          f"rank sweep on the card: {stats['n_combos']} combinations, "
+          f"findings: {'; '.join(map(str, findings))}")
+    print(f"  rank sweep on {stats['device']}: {stats['n_combos']} "
+          f"combinations, leaves {stats['leaves']}, no finding "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    budgets = hotpaths.load_budgets()
+    check(set(budgets) == set(hotpaths.HOT_PATHS),
+          f"budgeted {sorted(budgets)}, registered {sorted(hotpaths.HOT_PATHS)}")
+    for name in sorted(hotpaths.HOT_PATHS):
+        cuda_lib.reset_launch_counts()
+        r = hotpaths.measure(name, dev, reps=ANALYSIS_REPS)
+        entry = budgets[name]
+        print(f"  {name}: builds/loads warm-up {r['warmup_builds']}/"
+              f"{r['warmup_loads']}, steady {r['steady_builds']}/"
+              f"{r['steady_loads']}; reads (a) {r['steady_reads']} (form "
+              f"{hotpaths.form_value(entry['reads'], r['units'], True)}, "
+              f"{r['steady_read_kinds'].get('to_host', 0)} to the host); syncs (b) "
+              f"{r['steady_syncs']} (form "
+              f"{hotpaths.form_value(entry['syncs'], r['units'])}); "
+              f"{r['units']} {r['unit']}; steady call {r['steady_ms']:.3f} ms "
+              f"wall (median of {ANALYSIS_REPS}); launches "
+              f"{r['steady_launches']} {tag}")
+        print(f"    read sites {r['steady_read_sites']}; sync sites "
+              f"{r['steady_sync_sites']}")
+        failures = hotpaths.check_budget(name, r, entry)
+        check(not failures, "; ".join(failures))
+        if name in ANALYSIS_KERNEL3:
+            got = r["steady_launches"].get("masked_aggregate", 0)
+            check(got == ANALYSIS_KERNEL3[name],
+                  f"{name}: kernel 3 launched {got} times in the steady "
+                  f"call, expected {ANALYSIS_KERNEL3[name]}")
+    print(f"  phase [12] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=None,
@@ -3071,6 +3132,10 @@ def main() -> int:
           flush=True)
     run_training(torch, dev, card_line)
 
+    print("[12] the analysis gate: rank contract, hot-path budgets" + at(),
+          flush=True)
+    run_analysis(torch, dev, card_line)
+
     sources = {"fused_solve": ("src/repro_torch/csrc/selection_solve.cu",
                                "src/repro/kernels/selection_solve/kernel.py:143"),
                "selection_solve": ("src/repro_torch/csrc/selection_solve.cu",
@@ -3090,7 +3155,7 @@ def main() -> int:
                     launches=out["launches"][name], max_abs_err=errs[name],
                     **rec[name])
                for name, (src, rep) in sources.items()]
-    print(f"[12] done in {time.perf_counter() - t_start:.1f} s; peak device "
+    print(f"[13] done in {time.perf_counter() - t_start:.1f} s; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(card_line)

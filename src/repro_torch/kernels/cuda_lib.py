@@ -10,7 +10,10 @@ the module is imported.
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers in
 ``kernels/*/ops.py`` made; each wrapper adds one where it launches and
-nowhere else.
+nowhere else.  ``BUILDS`` counts the builds that ran ``nvcc`` (not those
+that found the hashed library on disk) and ``LOADS`` the ``ctypes.CDLL``
+loads of the library: a steady call makes neither
+(``repro_torch.analysis.recompile.BuildBudget``).
 """
 from __future__ import annotations
 
@@ -35,6 +38,8 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
 LAUNCHES = {"fused_solve": 0, "selection_solve": 0, "masked_aggregate": 0,
             "row_scale": 0, "quantized_masked_aggregate": 0, "swa_decode": 0,
             "ssd_scan": 0}
+BUILDS = 0
+LOADS = 0
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -55,6 +60,11 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def reset_build_counts() -> None:
+    global BUILDS, LOADS
+    BUILDS = LOADS = 0
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     for cand in (Path(home) / "bin" / "nvcc", shutil.which("nvcc")):
@@ -70,6 +80,7 @@ def build() -> Path:
     The compiler's output (``-Xptxas -v``: registers and spills per
     kernel) is kept beside the library, in ``build_log(lib)``.
     """
+    global BUILDS
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC.glob("*.cu*")):
@@ -79,6 +90,7 @@ def build() -> Path:
     if lib.exists():
         return lib
     nvcc = _nvcc()
+    BUILDS += 1
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources]
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
@@ -108,9 +120,10 @@ def build_log(lib: Path) -> Path:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _library
+    global _library, LOADS
     if _library is None:
         lib = ctypes.CDLL(str(build()))
+        LOADS += 1
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -32,6 +32,8 @@ import torch
 
 import chip_smoke
 
+from repro_torch.analysis import HostSyncBudget, hotpaths
+from repro_torch.analysis.rank import sweep_rank_contract
 from repro_torch.configs import ARCHS
 from repro_torch.core.alternating import solve_joint
 from repro_torch.core.batch import solve_joint_batch
@@ -988,3 +990,54 @@ def test_dense_train_step_on_the_card_matches_the_cpu(dev):
         total += d.numel()
     assert apart <= 1e-3 * total
     assert dict(cuda_lib.LAUNCHES) == before     # no kernel on this path
+
+
+# ------------------------------------------------------- the analysis gate
+
+@pytest.mark.parametrize("k", [0, 1, 3])
+def test_sync_debug_counts_each_item(dev, k):
+    x = torch.arange(4.0, device=dev)
+    with HostSyncBudget(None, strict=False) as hs:
+        for _ in range(k):
+            x.sum().item()
+    assert hs.count == hs.syncs == k
+    assert [r.kind for r in hs.sync_reads] == ["sync_debug"] * k
+    assert hs.sites() == hs.sites(hs.sync_reads)
+
+
+def test_explicit_synchronize_is_counted_and_restored(dev):
+    synchronize = torch.cuda.synchronize
+    with HostSyncBudget(None, strict=False) as hs:
+        torch.cuda.synchronize()
+    assert torch.cuda.synchronize is synchronize
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert (hs.count, hs.syncs) == (0, 1)
+    assert hs.sync_reads[0].kind == "synchronize"
+
+
+def test_reads_and_syncs_agree_on_solve_joint_fused(dev):
+    result = hotpaths.measure("solve_joint_fused", dev)
+    assert result["steady_reads"] == result["steady_syncs"] >= 2
+    assert result["steady_read_sites"] == result["steady_sync_sites"]
+
+
+def test_no_build_or_load_after_a_warmup_that_loads_the_library(
+        dev, monkeypatch):
+    monkeypatch.setattr(cuda_lib, "_library", None)
+    result = hotpaths.measure("scan_engine_sweep", dev)
+    assert result["warmup_loads"] == 1
+    assert result["steady_builds"] == result["steady_loads"] == 0
+    assert result["steady_launches"] == {"masked_aggregate": 8 * 3}
+
+
+@pytest.mark.parametrize("name", sorted(hotpaths.HOT_PATHS))
+def test_hot_path_holds_its_budget_on_the_card(dev, name):
+    result = hotpaths.measure(name, dev)
+    assert hotpaths.check_budget(name, result,
+                                 hotpaths.load_budgets()[name]) == [], result
+
+
+def test_rank_sweep_on_the_card_is_clean(dev):
+    findings, stats = sweep_rank_contract(device=dev)
+    assert findings == [], "\n".join(map(str, findings))
+    assert stats["n_combos"] == 486
