@@ -14,14 +14,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. hold each kernel against its plain PyTorch version on the card, at the
    slices' shapes and at ragged ones, within the stated tolerance (the
    solve kernels bit for bit, also on adversarial elements and a padded
-   mixed batch);
+   mixed batch; the decode attention also with gemma2's softcap at its
+   heads, and without one bit for bit the outputs recorded before it
+   took one);
 3. time each kernel with CUDA events (the solve kernels as device time
    with their launches queued behind a spin kernel, beside the bound on
    the steps their function needs on these inputs; the decode attention, whose
    launches are shorter than the host's cost of making them, and the SSD
    scan's passes by the profiler's device time; the quantised sum's two
    kernels as device time with their launches queued behind a spin
-   kernel) beside its bound, its
+   kernel; the decode attention with gemma2's softcap beside the same
+   launches without it) beside its bound, its
    plain version and (for the plain aggregate, the quantised sum's scale
    pass and the decode attention) one PyTorch library call, and profile
    a few rounds of each sweep; the quantised sum with every row live is
@@ -113,7 +116,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``analysis/budgets.json``), kernel 3 launched in both sweep paths'
    steady calls, and one line each with the counts, the units and the
    steady call's wall time (median of 5);
-13. print the kernel record, the card, and the last line
+13. drive the remaining attention archs' serving path at full width,
+   one after the other, each's weights from a seeded generator and freed
+   before the next's: h2o-danube-3-4b (3,838,959,360 parameters),
+   phi3-medium-14b (14,145,704,960), gemma2-27b cut to 24 of its 46
+   layers (14,769,418,752; its 108.9 GB of float32 weights do not fit
+   the card) and zamba2-7b (8,640,318,160, its 13 shared-block layers'
+   unread MLPs included); each count against ``zoo.param_count``,
+   teacher-forced decode (``make_serve_step``) against forward
+   (``make_prefill_step``) at B = 2, S = 512 within 1e-3,
+   ``BatchedServer(batch=4)`` on 8 requests x 24 new tokens with kernel 6
+   launched exactly steps x attention layers (24, 40, 24, 13) times, a
+   profiled decode step and the peak device memory; zamba2 also prefills
+   at B = 1, S = 4,096 with exactly 81 ``ssd_scan`` launches;
+14. print the kernel record, the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero without a CUDA device and
@@ -190,6 +206,23 @@ SSD_TOL = 2e-4
 SELF_CHECK_TOL = 1e-3   # full-width decode logits against forward's
 # gemma3-1b's attention: MQA, one KV head for G = 4 query heads of 256
 GEMMA3_HEADS = (1, 4, 256)
+# gemma2-27b's: 16 KV heads for G = 2 query heads each, dh 128, window 4096
+# on the local layers, and its attention-logit softcap
+GEMMA2_HEADS = (16, 2, 128)
+GEMMA2_WINDOW = 4096
+GEMMA2_SOFTCAP = 50.0
+# kernel 6 without a softcap, bit for bit as it was before it took one:
+# (B, W, Hkv, G, dh, window, qpos, nsplit) of numpy-made operands
+# (``decode_digests``), and the first 16 hex digits of the SHA-256 of the
+# output bytes, as the kernel built from the tree without the softcap gave
+# them on an H100 (CUDA 12.8, torch 2.11)
+DIGEST_CASES = ((4, 664, 1, 4, 256, None, 1327, 21),
+                (2, 97, 2, 3, 30, None, 200, 3),
+                (2, 4100, 16, 2, 128, 4096, 9000, 7),
+                (2, 200, 32, 1, 112, None, 120, 1),
+                (2, 88, 8, 4, 120, 64, 150, 3))
+DECODE_DIGESTS = ("e2ffc9a2d616b7ff", "5225d919b9febb93", "4362ac52e0ddf2cf",
+                  "39be377c2690a2c2", "99130235968891eb")
 SERVE_GENS = (24, 600)  # the reference server's default, and past the window
 # mamba2-780m's scan: 48 heads of P = 64, d_state 128, chunk 256; the
 # prefills (B, S): prefill_32k's length with its batch cut from 32 (whose
@@ -197,6 +230,13 @@ SERVE_GENS = (24, 600)  # the reference server's default, and past the window
 MAMBA2_SSD = (48, 64, 128, 256)
 MAMBA2_PREFILLS = ((1, 32768), (4, 4096))
 MAMBA2_SELF_CHECK = (2, 512)        # teacher-forced decode: 2 chunks
+# phase [13]: the remaining attention archs at full width, one after the
+# other; gemma2-27b cut to 24 of its 46 layers (12 local/global pairs),
+# since its 108.9 GB of float32 weights do not fit the card's 80 GB
+ARCH_RUNS = (("h2o-danube-3-4b", None), ("phi3-medium-14b", None),
+             ("gemma2-27b", 24), ("zamba2-7b", None))
+ARCH_SELF_CHECK = (2, 512)   # teacher-forced decode (B, S): 2 of zamba2's chunks
+ZAMBA2_PREFILL = (1, 4096)
 # decode timings at gemma3's heads beyond the serving step: (B, W, window,
 # distinct caches, repetitions); the serving runs' caches (W 88 at gen 24,
 # 512 and 664 at gen 600) and a long cache at a larger batch
@@ -1786,7 +1826,13 @@ def check_decode(torch, dev) -> float:
     for b, w, hkv, g, dh, window, qpos in ((2, 70, 1, 4, 64, None, 69),
                                            (2, 64, 1, 4, 16, 64, 129),
                                            (3, 130, 2, 3, 80, 64, 200),
-                                           (3, 130, 2, 3, 30, None, 200)):
+                                           (3, 130, 2, 3, 30, None, 200),
+                                           # danube's, phi3's and zamba2's
+                                           # heads at their serving caches
+                                           (4, 88, 8, 4, 120, 4096, 60),
+                                           (4, 88, 10, 4, 128, None, 60),
+                                           (4, 88, 32, 1, 112, 4096, 60),
+                                           (2, 512, 32, 1, 112, 4096, 700)):
         cases.append((b, w, hkv, g, dh, window, qpos,
                       ring_positions(torch, w, qpos, dev)))
     worst = 0.0
@@ -1847,15 +1893,118 @@ def check_decode(torch, dev) -> float:
         print(f"  swa_decode B={b:>2} W={w:>5} (nsplit "
               f"{ops.split_count(b, w, sm_count(torch))}): 3 launches, the "
               f"same bits")
+    worst = max(worst, check_softcap_decode(torch, dev))
+    got = decode_digests(torch, dev)
+    print(f"  swa_decode without a softcap on {len(got)} numpy-made cases: "
+          f"output digests {got}")
+    check(got == list(DECODE_DIGESTS),
+          f"swa_decode without a softcap: digests {got}, not the kernel's "
+          f"recorded {DECODE_DIGESTS}")
+    print("  swa_decode without a softcap: every output bit for bit the "
+          "recorded one")
     return worst
 
 
-def decode_bound(b, w, hkv, g, dh) -> tuple[float, str]:
+def decode_digests(torch, dev) -> list:
+    """The first 16 hex digits of the SHA-256 of kernel 6's output bytes
+    without a softcap, on operands drawn with numpy for each of
+    ``DIGEST_CASES``, at its split count."""
+    import hashlib
+    import numpy as np
+    from repro_torch.kernels.swa_decode import ops
+    out = []
+    for i, (b, w, hkv, g, dh, window, qpos, nsplit) in enumerate(DIGEST_CASES):
+        rng = np.random.default_rng(100 + i)
+        q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+                   for shape in ((b, hkv, g, dh), (b, w, hkv, dh), (b, w, hkv, dh)))
+        q = q * dh ** -0.5
+        o = ops._launch(q, k, v, ring_positions(torch, w, qpos, dev), qpos,
+                        window, nsplit)
+        out.append(hashlib.sha256(o.cpu().numpy().tobytes()).hexdigest()[:16])
+    return out
+
+
+def check_softcap_decode(torch, dev) -> float:
+    """Kernel 6 with gemma2's softcap (50) at gemma2's heads against its
+    plain version: a ragged local ring of 4,100 slots wrapped under the
+    4,096 window and without one, the serving run's cache of 88 and a
+    filling ring, each through the wrapper and at forced split counts;
+    the queries as drawn (scores of spread about 1, where the cap barely
+    bends them) and scaled by 30 (spread about 30, bent hard)."""
+    from repro_torch.kernels.swa_decode import ops, ref
+    worst = 0.0
+    for i, (b, w, window, qpos, splits) in enumerate((
+            (4, 4100, GEMMA2_WINDOW, 9000, (1, 7, 64)),
+            (4, 4100, None, 9000, (1, 7, 64)),
+            (4, 88, None, 60, (1, 3)),
+            (2, 1000, GEMMA2_WINDOW, 700, (1, 17)))):
+        q, k, v = decode_operands(torch, dev, b, w, *GEMMA2_HEADS, 80 + i)
+        pos = ring_positions(torch, w, qpos, dev)
+        for hot in (1.0, 30.0):
+            qh = q * hot
+            plain = ref.swa_decode_ref(qh, k, v, pos, qpos, window=window,
+                                       softcap=GEMMA2_SOFTCAP)
+            runs = [("wrapper", ops.swa_decode(qh, k, v, pos, qpos, window=window,
+                                               softcap=GEMMA2_SOFTCAP))]
+            runs += [(f"nsplit={n}", ops._launch(qh, k, v, pos, qpos, window, n,
+                                                 GEMMA2_SOFTCAP)) for n in splits]
+            torch.cuda.synchronize()
+            errs = []
+            for label, out in runs:
+                err = float((out - plain).abs().max())
+                check(bool(torch.isfinite(out).all()) and bool(torch.allclose(
+                    out, plain, rtol=DECODE_TOL, atol=DECODE_TOL)),
+                    f"swa_decode softcap W={w} window={window} {label} x{hot:g}: "
+                    f"error {err} beyond {DECODE_TOL}")
+                errs.append(f"{label} {err:.2e}")
+                worst = max(worst, err)
+            print(f"  swa_decode softcap {GEMMA2_SOFTCAP:g} B={b} W={w:>4} "
+                  f"Hkv={GEMMA2_HEADS[0]} G={GEMMA2_HEADS[1]} dh={GEMMA2_HEADS[2]} "
+                  f"window={window} qpos={qpos} q x{hot:g}: max|kernel - plain| "
+                  + ", ".join(errs))
+        del q, k, v
+    return worst
+
+
+def decode_bound(b, w, hkv, g, dh, softcap: bool = False) -> tuple[float, str]:
     """K and V read once, q read and out written once, pos read once;
-    2 x 2 operations per (query row, slot, column) and 5 per score."""
+    2 x 2 operations per (query row, slot, column) and 5 per score, 4 more
+    with a softcap (a division, the tanh, two products)."""
     h = hkv * g
     nbytes = (2 * b * w * hkv * dh + 2 * b * h * dh + w) * 4
-    return bound_ms(nbytes, 4 * b * h * w * dh + 5 * b * h * w)
+    per_score = 9 if softcap else 5
+    return bound_ms(nbytes, 4 * b * h * w * dh + per_score * b * h * w)
+
+
+def time_softcap_decode(torch, dev) -> None:
+    """Device time (the profiler's) of kernel 6 with gemma2's softcap,
+    beside the same launches without it, its plain version and the bound,
+    at gemma2's heads on full rings: the serving run's cache of 88 slots
+    and a local ring of 4,096 under the window, each over enough distinct
+    caches that every launch reads its K and V from device memory."""
+    from repro_torch.kernels.swa_decode import ops, ref
+    for b, w, copies, reps in ((4, 88, 48, 50), (4, 4096, 4, 20)):
+        qpos = 2 * w - 1
+        pos = ring_positions(torch, w, qpos, dev)
+        ops_ = [decode_operands(torch, dev, b, w, *GEMMA2_HEADS, 300 + i)
+                for i in range(copies)]
+
+        def run(cap, fn=ops.swa_decode):
+            return lambda: [fn(q, k, v, pos, qpos, window=GEMMA2_WINDOW,
+                               softcap=cap) for q, k, v in ops_]
+        capped = device_ms(torch, run(GEMMA2_SOFTCAP), reps, "swa_decode")[1] / copies
+        free = device_ms(torch, run(None), reps, "swa_decode")[1] / copies
+        plain = device_ms(torch, run(GEMMA2_SOFTCAP, ref.swa_decode_ref),
+                          max(reps // 10, 2))[0] / copies
+        b_ms, by = decode_bound(b, w, *GEMMA2_HEADS, softcap=True)
+        print(f"  swa_decode softcap {GEMMA2_SOFTCAP:g} B={b} W={w:>4} "
+              f"window={GEMMA2_WINDOW} Hkv={GEMMA2_HEADS[0]} G={GEMMA2_HEADS[1]} "
+              f"dh={GEMMA2_HEADS[2]} (nsplit "
+              f"{ops.split_count(b * GEMMA2_HEADS[0], w, sm_count(torch))}), "
+              f"device time: kernel {capped:.6f} ms, without the softcap "
+              f"{free:.6f} ms, plain {plain:.6f} ms, bound {b_ms:.6f} ms "
+              f"({by}); kernel at {b_ms / capped:.3f} of its bound")
+        del ops_
 
 
 def time_decode(torch, dev) -> dict:
@@ -1939,10 +2088,9 @@ def time_decode(torch, dev) -> dict:
 def serve_gemma3(torch, dev) -> dict:
     """The serving slice's main path at full width, with the launch count
     zeroed just before each serve run and read just after it."""
-    import numpy as np
     from repro_torch.configs import get_arch
     from repro_torch.kernels import cuda_lib
-    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.launch.serve import BatchedServer
     from repro_torch.models import transformer as T
     from repro_torch.models import zoo
     from repro_torch.tree import tree_leaves
@@ -1979,9 +2127,7 @@ def serve_gemma3(torch, dev) -> dict:
 
     launches, per_gen = 0, {}
     for gen in SERVE_GENS:
-        rng = np.random.default_rng(0)          # the reference server's recipe
-        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, rng.integers(4, 24))
-                        .astype(np.int32), max_new=gen) for i in range(8)]
+        reqs = serve_requests(cfg, gen)
         server = BatchedServer(cfg, params, 4, cache_len=64 + gen, device=dev)
         torch.cuda.synchronize()
         cuda_lib.reset_launch_counts()
@@ -2265,9 +2411,8 @@ def run_mamba2(torch, dev, cfg, params) -> dict:
     """The Mamba2 slice's main path at full width, with the launch count
     zeroed just before each prefill and read just after it; then decode
     against forward and the server."""
-    import numpy as np
     from repro_torch.kernels import cuda_lib
-    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.launch.serve import BatchedServer
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import transformer as T
     from repro_torch.models import zoo
@@ -2330,9 +2475,7 @@ def run_mamba2(torch, dev, cfg, params) -> dict:
     del full, cache, logits
 
     gen_len = SERVE_GENS[0]
-    rng = np.random.default_rng(0)              # the reference server's recipe
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, rng.integers(4, 24))
-                    .astype(np.int32), max_new=gen_len) for i in range(8)]
+    reqs = serve_requests(cfg, gen_len)
     server = BatchedServer(cfg, params, 4, cache_len=64 + gen_len, device=dev)
     stats = server.run(reqs)
     steps = stats["decode_steps"]
@@ -2348,6 +2491,169 @@ def run_mamba2(torch, dev, cfg, params) -> dict:
     last = max(len(r.prompt) for r in reqs[4:]) + gen_len
     profile_decode(torch, dev, cfg, params, server.cache, last, server.b, None)
     return dict(launches=launches)
+
+
+# ------------------------------------------------- the remaining archs
+
+def serve_requests(cfg, gen: int):
+    """The reference server's request recipe: 8 requests, prompts of 4-23
+    tokens drawn from ``default_rng(0)``."""
+    import numpy as np
+    from repro_torch.launch.serve import Request
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, rng.integers(4, 24))
+                    .astype(np.int32), max_new=gen) for i in range(8)]
+
+
+def run_arch(torch, dev, cfg) -> dict:
+    """One arch's serving path at full width (depth as ``cfg`` has it):
+    the parameters from a seeded generator, zamba2's prefill, teacher-
+    forced decode against forward, ``BatchedServer`` and a profiled decode
+    step, each with the launch counts zeroed just before it and read just
+    after.  Returns the main path's launches of kernels 5 and 6."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models import zoo
+    from repro_torch.tree import tree_leaves
+    counts = cuda_lib.LAUNCHES
+    kinds = [k[0] for k in T.layer_plan(cfg).all_layers()]
+    n_attn = sum(k in ("attn", "gattn", "shared_attn") for k in kinds)
+    n_ssd = sum(k in ("mamba", "shared_attn") for k in kinds)
+    a = cfg.attn
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    n = sum(x.numel() for x in tree_leaves(params))
+    print(f"  {cfg.name}: {n:,} parameters ({n * 4 / 1e9:.2f} GB float32) on the "
+          f"card in {time.perf_counter() - t0:.3f} s; {cfg.n_layers} layers, "
+          f"{n_attn} attention ({a.n_heads} heads over {a.n_kv_heads} KV, dh "
+          f"{a.d_head}, window {a.window}, softcap {a.logit_softcap}), "
+          f"{n_ssd} Mamba2; d_model {cfg.d_model}, vocab {cfg.vocab:,}")
+    check(n == zoo.param_count(cfg), f"{n} parameters, not {zoo.param_count(cfg)}")
+    prefill, step = make_prefill_step(cfg), make_serve_step(cfg)
+    got = {"swa_decode": 0, "ssd_scan": 0}
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    if n_ssd:                       # zamba2: a prefill through kernel 5
+        b, s = ZAMBA2_PREFILL
+        prefill(params, {"tokens": torch.zeros((1, cfg.ssm.chunk), dtype=torch.long,
+                                               device=dev)})     # warm-up
+        tokens = torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"  prefill B={b} S={s}: {wall:.3f} s wall, {b * s / wall:,.0f} "
+              f"tokens/s, ssd_scan launches {counts['ssd_scan']} ({n_ssd} "
+              f"Mamba2 mixers), swa_decode {counts['swa_decode']}; max|logits| "
+              f"{float(logits.abs().max()):.3f}")
+        check(tuple(logits.shape) == (b, s, T.padded_vocab(cfg))
+              and bool(torch.isfinite(logits).all()),
+              f"prefill logits of shape {tuple(logits.shape)}, or not finite")
+        check(counts["ssd_scan"] == n_ssd and counts["swa_decode"] == 0,
+              f"prefill: {counts['ssd_scan']} ssd_scan launches, not {n_ssd}")
+        got["ssd_scan"] += counts["ssd_scan"]
+        del logits
+        profile_prefill(torch, prefill, params, tokens)
+
+    # teacher-forced decode (kernel 6) against forward (plain attention)
+    b, s = ARCH_SELF_CHECK
+    tokens = torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    full = prefill(params, {"tokens": tokens})
+    check(counts["ssd_scan"] == n_ssd, f"forward: {counts['ssd_scan']} "
+          f"ssd_scan launches, not {n_ssd}")
+    got["ssd_scan"] += counts["ssd_scan"]
+    cache = T.init_cache(cfg, b, s, device=dev)
+    err = torch.zeros((), device=dev)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t1 = time.perf_counter()
+    for i in range(s):
+        logits, cache = step(params, cache, {"tokens": tokens[:, i:i + 1], "pos": i})
+        err = torch.maximum(err, (logits[:, 0, :cfg.vocab]
+                                  - full[:, i, :cfg.vocab]).abs().max())
+    err = float(err)
+    t2 = time.perf_counter()
+    check(bool(torch.isfinite(full).all()), "non-finite forward logits")
+    print(f"  teacher-forced decode vs forward, B={b} S={s}: max|logits| "
+          f"{float(full[..., :cfg.vocab].abs().max()):.3f}, max error {err:.3e} "
+          f"(tol {SELF_CHECK_TOL:g}) in {t2 - t0:.3f} s ({(t2 - t1) / s * 1e3:.3f} "
+          f"ms a step); swa_decode launches {counts['swa_decode']} ({s} x {n_attn})")
+    check(err <= SELF_CHECK_TOL, f"decode differs from forward by {err}")
+    check(counts["swa_decode"] == s * n_attn and counts["ssd_scan"] == 0,
+          f"decode: {counts['swa_decode']} swa_decode launches, not {s} x "
+          f"{n_attn}, and {counts['ssd_scan']} ssd_scan")
+    got["swa_decode"] += counts["swa_decode"]
+    del full, cache, logits
+
+    gen_len = SERVE_GENS[0]
+    reqs = serve_requests(cfg, gen_len)
+    server = BatchedServer(cfg, params, 4, cache_len=64 + gen_len, device=dev)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    stats = server.run(reqs)
+    steps = stats["decode_steps"]
+    print(f"  BatchedServer batch 4, cache_len {64 + gen_len}, 8 requests x "
+          f"{gen_len} new tokens: {stats['tokens']} tokens in "
+          f"{stats['wall_s']:.3f} s, {stats['tok_per_s']:.1f} tok/s, {steps} "
+          f"decode steps, {stats['wall_s'] / steps * 1e3:.3f} ms per step; "
+          f"swa_decode launches {counts['swa_decode']} ({steps} x {n_attn})")
+    print(f"  completions (first 8 tokens): {stats['completions']}")
+    check(stats["requests"] == 8 and all(len(r.out) == gen_len for r in reqs)
+          and all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+          f"{cfg.name}: incomplete completions or a token outside the vocabulary")
+    check(counts["swa_decode"] == steps * n_attn and counts["ssd_scan"] == 0,
+          f"{cfg.name}: {counts['swa_decode']} swa_decode launches, not "
+          f"{steps} x {n_attn}")
+    got["swa_decode"] += counts["swa_decode"]
+    last = max(len(r.prompt) for r in reqs[4:]) + gen_len
+    profile_decode(torch, dev, cfg, params, server.cache, last, server.b,
+                   "swa_decode")
+    return got
+
+
+def run_archs(torch, dev, card_line: str) -> dict:
+    """Phase [13]: h2o-danube-3-4b, phi3-medium-14b, gemma2-27b (24 of 46
+    layers) and zamba2-7b at full width, one after the other, each's
+    weights freed before the next's.  Returns the launches of kernels 5
+    and 6 on their main paths."""
+    import gc
+    from repro_torch.configs import get_arch
+    t_phase = time.perf_counter()
+    launches = {"swa_decode": 0, "ssd_scan": 0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {card_line}; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated before the phase")
+    for name, cut in ARCH_RUNS:
+        t0 = time.perf_counter()
+        cfg = get_arch(name)
+        if cut:
+            print(f"  {name}: cut to {cut} of its {cfg.n_layers} layers (its "
+                  f"{cfg.n_params() * 4 / 1e9:.2f} GB of float32 weights do "
+                  f"not fit the card)")
+            cfg = dataclasses.replace(cfg, n_layers=cut)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            got = run_arch(torch, dev, cfg)
+        for k in launches:
+            launches[k] += got[k]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {name}: peak device memory {peak:.2f} GiB; "
+              f"{time.perf_counter() - t0:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB left allocated")
+    print(f"  phase [13] {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # ----------------------------------------------------------- closed loop
@@ -3069,6 +3375,7 @@ def main() -> int:
     print("[3] times" + at(), flush=True)
     rec = time_kernels(torch, dev, sass)
     rec["swa_decode"] = time_decode(torch, dev)
+    time_softcap_decode(torch, dev)
     rec["ssd_scan"], ssd_ms = time_ssd(torch, dev)
     time_round_parts(torch, dev)
     profile_sweep(torch, dev, "grid", grid_plans(dev, 5), "masked_aggregate")
@@ -3136,6 +3443,11 @@ def main() -> int:
           flush=True)
     run_analysis(torch, dev, card_line)
 
+    print("[13] the remaining attention archs at full width: h2o-danube-3-4b, "
+          "phi3-medium-14b, gemma2-27b (24 layers), zamba2-7b" + at(), flush=True)
+    for name, n in run_archs(torch, dev, card_line).items():
+        out["launches"][name] += n
+
     sources = {"fused_solve": ("src/repro_torch/csrc/selection_solve.cu",
                                "src/repro/kernels/selection_solve/kernel.py:143"),
                "selection_solve": ("src/repro_torch/csrc/selection_solve.cu",
@@ -3155,8 +3467,9 @@ def main() -> int:
                     launches=out["launches"][name], max_abs_err=errs[name],
                     **rec[name])
                for name, (src, rep) in sources.items()]
-    print(f"[13] done in {time.perf_counter() - t_start:.1f} s; peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[14] done in {time.perf_counter() - t_start:.1f} s; peak device "
+          f"memory since phase [13]'s last arch began "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,10 @@
 // over the slots s whose absolute position p = pos[s] is valid:
 // 0 <= p <= qpos, and p > qpos - window when a window is set.  As in the
 // TPU kernel, an invalid slot's score is -1e30 and its probability is
-// forced to 0, and the output is acc / max(l, 1e-30).
+// forced to 0, and the output is acc / max(l, 1e-30).  With a logit
+// softcap c > 0 (gemma2's attention) each score s = q . k becomes
+// c tanh(s / c) before the softmax, as the reference's decode computes it
+// (_masked_softmax, src/repro/models/layers.py).
 //
 // What bounds it on this card: device memory.  Each cached K and V value
 // is read once and used for G multiply-adds (G = 4 for gemma3's MQA), far
@@ -30,8 +33,12 @@
 // that leaves the same sum on every lane.  The scores are kept in base 2
 // (q times log2 e), so each weight is one exp2f, and the products are
 // explicit fmaf: a block's time is mostly its own arithmetic and latency,
-// not its bytes.  Slots whose position is
-// invalid are not read.  The warps' states are merged through shared
+// not its bytes.  With a softcap (the CAP instantiations) q enters shared
+// memory as it is, the tanh takes the raw score, and the log2 e factor
+// multiplies the capped score: one tanhf per (slot, query row), which
+// leaves the kernel bound by its bytes.  Without one (CAP false) the
+// scores are q log2 e . k as above, operation for operation.  Slots whose
+// position is invalid are not read.  The warps' states are merged through shared
 // memory, warp by warp in order.  With nsplit = 1 that is the output; otherwise
 // each block writes its (m, l, acc) to the wrapper's scratch, and the last
 // block of (b, h) to finish (it learns so from __threadfence() and an
@@ -43,7 +50,8 @@
 // so the result is the same from run to run.  Template parameters fix
 // the register arrays: Q float4 column groups per lane (dh <= 128 Q) and
 // MAXG query rows (G <= MAXG); the launcher rounds both up to powers of
-// two.  Any W and dh <= 256 work (16-byte loads when dh % 4 == 0).
+// two.  CAP selects the softcapped scores.  Any W and dh <= 256 work
+// (16-byte loads when dh % 4 == 0).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -59,18 +67,19 @@ constexpr float kNegInf = -1e30f;
 // each softmax weight is one exp2f
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int Q, int MAXG>
+template <int Q, int MAXG, bool CAP>
 __global__ void __launch_bounds__(kThreads)
     swa_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const int* __restrict__ pos,
                       float* __restrict__ out, float* __restrict__ part,
                       int* __restrict__ counter, int w, int hkv, int g, int dh,
-                      int per, long long qpos, long long window, bool vec) {
+                      int per, long long qpos, long long window, float softcap,
+                      bool vec) {
   constexpr int kCols = 128 * Q;
   constexpr int D = 4 * Q;                       // columns per lane
   constexpr int U = (MAXG * Q > 8) ? 2 : 4;      // slots per warp step
-  // q (times log2 e) in buf[0] during the slot loop; then four warps'
-  // scaled accumulators at a time
+  // q (times log2 e, or as it is under CAP) in buf[0] during the slot
+  // loop; then four warps' scaled accumulators at a time
   __shared__ __align__(16) float buf[4][MAXG][kCols];
   float (*sq)[kCols] = buf[0];
   __shared__ float sm[kWarps][MAXG];
@@ -101,6 +110,7 @@ __global__ void __launch_bounds__(kThreads)
     pnext[u] = s < s_end ? pos[s] : -1;
   }
   const float* qbh = q + (long long)bh * g * dh;
+  const float qscale = CAP ? 1.0f : kLog2e;
   if (vec) {
     for (int i = threadIdx.x; i < MAXG * kCols / 4; i += kThreads) {
       const int gi = 4 * i / kCols;
@@ -109,13 +119,16 @@ __global__ void __launch_bounds__(kThreads)
                             ? *reinterpret_cast<const float4*>(qbh + gi * dh + d)
                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       *reinterpret_cast<float4*>(&sq[gi][d]) =
-          make_float4(qv.x * kLog2e, qv.y * kLog2e, qv.z * kLog2e, qv.w * kLog2e);
+          CAP ? qv
+              : make_float4(qv.x * qscale, qv.y * qscale, qv.z * qscale,
+                            qv.w * qscale);
     }
   } else {
     for (int i = threadIdx.x; i < MAXG * kCols; i += kThreads) {
       const int gi = i / kCols;
       const int d = i - gi * kCols;
-      sq[gi][d] = (gi < g && d < dh) ? qbh[gi * dh + d] * kLog2e : 0.0f;
+      const float qv = (gi < g && d < dh) ? qbh[gi * dh + d] : 0.0f;
+      sq[gi][d] = CAP ? qv : qv * qscale;
     }
   }
   __syncthreads();
@@ -201,6 +214,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1)
           sc[u][gi] += __shfl_xor_sync(0xffffffffu, sc[u][gi], o);
+    if (CAP) {
+      // the reference's c tanh(s / c) on the raw score, then base 2
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int gi = 0; gi < MAXG; ++gi)
+          sc[u][gi] = (softcap * tanhf(sc[u][gi] / softcap)) * kLog2e;
+    }
 
 #pragma unroll
     for (int gi = 0; gi < MAXG; ++gi) {
@@ -402,22 +423,29 @@ template <int Q, int MAXG>
 void launch_one(const float* q, const float* k, const float* v,
                 const int* pos, float* out, float* part, int* counter, int b,
                 int w, int hkv, int g, int dh, int nsplit, long long qpos,
-                long long window, bool vec, cudaStream_t stream) {
+                long long window, float softcap, bool vec, cudaStream_t stream) {
   const int per = (w + nsplit - 1) / nsplit;
-  swa_decode_kernel<Q, MAXG><<<dim3(b * hkv, nsplit), kThreads, 0, stream>>>(
-      q, k, v, pos, out, part, counter, w, hkv, g, dh, per, qpos, window, vec);
+  const dim3 grid(b * hkv, nsplit);
+  if (softcap > 0.0f)
+    swa_decode_kernel<Q, MAXG, true><<<grid, kThreads, 0, stream>>>(
+        q, k, v, pos, out, part, counter, w, hkv, g, dh, per, qpos, window,
+        softcap, vec);
+  else
+    swa_decode_kernel<Q, MAXG, false><<<grid, kThreads, 0, stream>>>(
+        q, k, v, pos, out, part, counter, w, hkv, g, dh, per, qpos, window,
+        softcap, vec);
 }
 
 template <int Q>
 void launch_q(int maxg, const float* q, const float* k, const float* v,
               const int* pos, float* out, float* part, int* counter, int b,
               int w, int hkv, int g, int dh, int nsplit, long long qpos,
-              long long window, bool vec, cudaStream_t stream) {
+              long long window, float softcap, bool vec, cudaStream_t stream) {
   switch (maxg) {
-    case 1: launch_one<Q, 1>(q, k, v, pos, out, part, counter, b, w, hkv, g, dh, nsplit, qpos, window, vec, stream); break;
-    case 2: launch_one<Q, 2>(q, k, v, pos, out, part, counter, b, w, hkv, g, dh, nsplit, qpos, window, vec, stream); break;
-    case 4: launch_one<Q, 4>(q, k, v, pos, out, part, counter, b, w, hkv, g, dh, nsplit, qpos, window, vec, stream); break;
-    default: launch_one<Q, 8>(q, k, v, pos, out, part, counter, b, w, hkv, g, dh, nsplit, qpos, window, vec, stream); break;
+    case 1: launch_one<Q, 1>(q, k, v, pos, out, part, counter, b, w, hkv, g, dh, nsplit, qpos, window, softcap, vec, stream); break;
+    case 2: launch_one<Q, 2>(q, k, v, pos, out, part, counter, b, w, hkv, g, dh, nsplit, qpos, window, softcap, vec, stream); break;
+    case 4: launch_one<Q, 4>(q, k, v, pos, out, part, counter, b, w, hkv, g, dh, nsplit, qpos, window, softcap, vec, stream); break;
+    default: launch_one<Q, 8>(q, k, v, pos, out, part, counter, b, w, hkv, g, dh, nsplit, qpos, window, softcap, vec, stream); break;
   }
 }
 
@@ -427,7 +455,8 @@ bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
 
 }  // namespace
 
-// window < 0: no window.  G <= 8, dh <= 256, 1 <= nsplit <= min(64, W).
+// window < 0: no window; softcap <= 0: no logit softcap.  G <= 8,
+// dh <= 256, 1 <= nsplit <= min(64, W).
 // With nsplit > 1: part holds B Hkv nsplit G (dh + 2) floats, and counter
 // B Hkv ints that are 0 (each merging block leaves its own at 0 again).
 extern "C" int repro_swa_decode(const float* q, const float* k,
@@ -435,7 +464,7 @@ extern "C" int repro_swa_decode(const float* q, const float* k,
                                 float* part, int* counter, int b, int w,
                                 int hkv, int g, int dh, int nsplit,
                                 long long qpos, long long window,
-                                void* stream) {
+                                float softcap, void* stream) {
   if (b <= 0 || w <= 0 || hkv <= 0 || g <= 0 || g > 8 || dh <= 0 ||
       dh > 256 || nsplit < 1 || nsplit > kMaxSplit || nsplit > w ||
       (nsplit > 1 && (part == nullptr || counter == nullptr)))
@@ -445,8 +474,8 @@ extern "C" int repro_swa_decode(const float* q, const float* k,
                    aligned16(out) && (nsplit == 1 || aligned16(part));
   cudaStream_t s = (cudaStream_t)stream;
   if (dh <= 128)
-    launch_q<1>(maxg, q, k, v, pos, out, part, counter, b, w, hkv, g, dh, nsplit, qpos, window, vec, s);
+    launch_q<1>(maxg, q, k, v, pos, out, part, counter, b, w, hkv, g, dh, nsplit, qpos, window, softcap, vec, s);
   else
-    launch_q<2>(maxg, q, k, v, pos, out, part, counter, b, w, hkv, g, dh, nsplit, qpos, window, vec, s);
+    launch_q<2>(maxg, q, k, v, pos, out, part, counter, b, w, hkv, g, dh, nsplit, qpos, window, softcap, vec, s);
   return (int)cudaGetLastError();
 }

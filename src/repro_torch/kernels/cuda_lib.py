@@ -48,7 +48,7 @@ _SIGNATURES = {
     "repro_masked_aggregate": [_P] * 3 + [_I, _I, _LL, _P],
     "repro_row_scale": [_P] * 3 + [_LL, _LL, _P],
     "repro_quantized_masked_aggregate": [_P] * 6 + [_I, _I, _LL, _P],
-    "repro_swa_decode": [_P] * 7 + [_I] * 6 + [_LL, _LL, _P],
+    "repro_swa_decode": [_P] * 7 + [_I] * 6 + [_LL, _LL, _F, _P],
     "repro_ssd_scan": [_P] * 12 + [_I] * 6 + [_P],
 }
 

@@ -9,7 +9,8 @@ autograd: the kernel has no backward).  The kernel
 splits the ring across blocks (``split_count`` picks how many; the GPU
 tests launch it at other counts through ``_launch``, whose plain mirror is
 ``ref.swa_decode_split_ref``).  ``decode_attention`` views the decode
-step's query for it.
+step's query for it.  Each takes the reference decode's optional logit
+softcap (gemma2's 50): ``softcap * tanh(s / softcap)`` on every score.
 
 With more than one split the blocks of a (batch row, KV head) meet at a
 counter in device memory: one int32 per (batch row, KV head), kept here
@@ -74,22 +75,30 @@ def _check_shapes(q, k, v, pos_buf) -> None:
                          f"{tuple(pos_buf.shape)}")
 
 
+def _check_softcap(softcap) -> None:
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be positive or None, got {softcap}")
+
+
 def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               pos_buf: torch.Tensor, qpos, *,
-               window: int | None) -> torch.Tensor:
+               pos_buf: torch.Tensor, qpos, *, window: int | None,
+               softcap: float | None = None) -> torch.Tensor:
     """q [B, Hkv, G, dh] (pre-scaled), k/v [B, W, Hkv, dh], pos_buf [W]
     int32, qpos the query's position -> out [B, Hkv, G, dh].  A slot is
-    attended when 0 <= pos <= qpos (and pos > qpos - window)."""
+    attended when 0 <= pos <= qpos (and pos > qpos - window); ``softcap``
+    (None: none) caps each score s at ``softcap * tanh(s / softcap)``."""
     _check_shapes(q, k, v, pos_buf)
+    _check_softcap(softcap)
     if q.device.type == "cpu":
-        return swa_decode_ref(q, k, v, pos_buf, qpos, window=window)
+        return swa_decode_ref(q, k, v, pos_buf, qpos, window=window,
+                              softcap=softcap)
     nsplit = split_count(q.shape[0] * q.shape[1], k.shape[1], _sm_count(q.device))
-    return _launch(q, k, v, pos_buf, qpos, window, nsplit)
+    return _launch(q, k, v, pos_buf, qpos, window, nsplit, softcap)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             pos_buf: torch.Tensor, qpos, window: int | None,
-            nsplit: int) -> torch.Tensor:
+            nsplit: int, softcap: float | None = None) -> torch.Tensor:
     """Launch the kernel on CUDA operands with the ring cut into ``nsplit``
     contiguous ranges of ceil(W / nsplit) slots (the last ones short or
     empty), merged in split order."""
@@ -108,6 +117,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 1 <= nsplit <= min(MAX_SPLIT, w):
         raise ValueError(f"nsplit must lie in [1, min({MAX_SPLIT}, W={w})], "
                          f"got {nsplit}")
+    _check_softcap(softcap)
     out = torch.empty_like(q)
     # the partials and the counters, held until the launch is queued
     part = counter = None
@@ -118,19 +128,20 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            pos_buf.data_ptr(), out.data_ptr(),
            *(0 if t is None else t.data_ptr() for t in (part, counter)),
            bsz, w, hkv, g, dh, nsplit, int(qpos),
-           -1 if window is None else int(window))
+           -1 if window is None else int(window),
+           0.0 if softcap is None else float(softcap))
     LAUNCHES["swa_decode"] += 1
     return out
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos_buf: torch.Tensor, qpos, *, window: int | None,
-                     n_heads: int) -> torch.Tensor:
+                     n_heads: int, softcap: float | None = None) -> torch.Tensor:
     """q [B,1,H,dh]; k/v [B,W,Hkv,dh]; returns [B,1,H,dh]."""
     bsz, _, h, dh = q.shape
     if h != n_heads:
         raise ValueError(f"q has {h} heads, expected {n_heads}")
     hkv = k.shape[2]
     qg = (q[:, 0] * dh ** -0.5).reshape(bsz, hkv, h // hkv, dh)
-    out = swa_decode(qg, k, v, pos_buf, qpos, window=window)
+    out = swa_decode(qg, k, v, pos_buf, qpos, window=window, softcap=softcap)
     return out.reshape(bsz, 1, h, dh)

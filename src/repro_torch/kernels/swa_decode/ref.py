@@ -2,7 +2,8 @@
 
 ``swa_decode_ref`` is ``repro.kernels.swa_decode.ref``: dense masked
 softmax attention of one query token against the full ring-buffer
-cache.  ``swa_decode_split_ref`` writes out the kernel's decomposition
+cache, with the reference decode's optional logit softcap
+(``softcap * tanh(s / softcap)`` on the scores, before the mask).  ``swa_decode_split_ref`` writes out the kernel's decomposition
 (the ring cut into splits, a partial softmax per split, the merge in
 split order) for the tests; nothing on the main path calls it.
 """
@@ -13,9 +14,11 @@ import torch
 NEG = -1e30
 
 
-def _masked_scores(q, k, pos_buf, qpos, window):
+def _masked_scores(q, k, pos_buf, qpos, window, softcap):
     s = torch.einsum("bhgd,bshd->bhgs", q.to(torch.float32),
                      k.to(torch.float32))
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     valid = (pos_buf >= 0) & (pos_buf <= qpos)
     if window is not None:
         valid &= pos_buf > qpos - window
@@ -23,11 +26,11 @@ def _masked_scores(q, k, pos_buf, qpos, window):
 
 
 def swa_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   pos_buf: torch.Tensor, qpos, *,
-                   window: int | None) -> torch.Tensor:
+                   pos_buf: torch.Tensor, qpos, *, window: int | None,
+                   softcap: float | None = None) -> torch.Tensor:
     """q [B,Hkv,G,dh] (pre-scaled), k/v [B,W,Hkv,dh], pos_buf [W] ->
     [B,Hkv,G,dh]."""
-    s, _ = _masked_scores(q, k, pos_buf, qpos, window)
+    s, _ = _masked_scores(q, k, pos_buf, qpos, window, softcap)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhgs,bshd->bhgd", p,
                         v.to(torch.float32)).to(q.dtype)
@@ -35,14 +38,14 @@ def swa_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def swa_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          pos_buf: torch.Tensor, qpos, *, window: int | None,
-                         nsplit: int) -> torch.Tensor:
+                         nsplit: int, softcap: float | None = None) -> torch.Tensor:
     """The arguments and result of ``swa_decode_ref``, computed as the
     kernel splits it: split j covers the slots [j per, (j + 1) per), per =
     ceil(W / nsplit), and keeps the max m_j of its valid scores (-1e30
     without one), l_j = sum exp(s - m_j) and acc_j = sum exp(s - m_j) v
     over them; with M = max_j m_j the output is sum_j acc_j exp(m_j - M) /
     max(sum_j l_j exp(m_j - M), 1e-30), summed in split order."""
-    s, valid = _masked_scores(q, k, pos_buf, qpos, window)
+    s, valid = _masked_scores(q, k, pos_buf, qpos, window, softcap)
     v32 = v.to(torch.float32)
     w = k.shape[1]
     per = -(-w // nsplit)

@@ -12,7 +12,8 @@ product on the weight's bfloat16 values (``dot``).  Attention supports:
 * RoPE with per-layer theta (gemma3 dual-base), optional NoPE (llama4
   global layers),
 * sliding-window masks (gemma2/3, danube, llama4 chunked-local),
-* attention-logit softcapping (gemma2), on the full-sequence path,
+* attention-logit softcapping (gemma2), in the full-sequence path and
+  in the decode kernel,
 * query-chunked computation: sequences longer than ``q_chunk`` are
   processed one query block at a time, so the [Sq, Skv] score matrix
   never materialises for the full sequence,
@@ -292,12 +293,13 @@ def attn_decode_step(params: Params, x: torch.Tensor, pos: int,
 
     Ring-buffer write at slot ``pos % W``, made in place into the cache's
     tensors (which are returned), then attention through
-    ``decode_attention``.  The softcapped and the non-causal decode are
-    not ported (gemma2's decode comes with its own slice)."""
-    if spec.softcap is not None or not spec.causal:
+    ``decode_attention``, with the layer's logit softcap (gemma2's) where
+    it has one.  The non-causal decode (whisper's cross-attention) is not
+    ported: it comes with the whisper-large-v3 slice."""
+    if not spec.causal:
         raise NotImplementedError(
-            "the decode kernel computes causal attention without a logit "
-            "softcap; gemma2's softcapped decode comes with its own slice")
+            "the decode kernel computes causal attention; the non-causal "
+            "decode comes with the whisper-large-v3 slice")
     pos = int(pos)
     b = x.shape[0]
     h, kvh, dh = spec.n_heads, spec.n_kv_heads, spec.d_head
@@ -319,7 +321,7 @@ def attn_decode_step(params: Params, x: torch.Tensor, pos: int,
     cache.pos[slot] = pos
 
     out = decode_attention(q, cache.k, cache.v, cache.pos, pos,
-                           window=spec.window, n_heads=h)
+                           window=spec.window, n_heads=h, softcap=spec.softcap)
     y = out.reshape(b, 1, h * dh) @ params["wo"]
     return y, cache
 

@@ -13,14 +13,19 @@ Embedding tables are padded to a multiple of 256 rows; logits beyond the
 true vocab are masked to the dtype's minimum at decode.
 
 Block kinds (configs/base.py): the port runs ``attn`` and ``gattn`` with
-dense MLPs, and ``mamba`` (Mamba2, no MLP).  ``mla``, ``shared_attn``, MoE
-MLPs, the whisper encoder and the vision prefix raise
-``NotImplementedError`` naming the slice that brings them.
+dense MLPs (gemma2's with both logit softcaps), ``mamba`` (Mamba2, no
+MLP) and ``shared_attn`` (zamba2): an attention+MLP block whose
+parameters, ``params["shared_attn"]``, are shared across all its
+occurrences, then the layer's own Mamba2 mixer.  As in the reference,
+each ``shared_attn`` layer also carries an ``ln2`` and ``mlp`` of its own
+(its MLP kind is "dense") that nothing reads.  ``mla``, MoE MLPs, the
+whisper encoder and the vision prefix raise ``NotImplementedError``
+naming the slice that brings them.
 """
 from __future__ import annotations
 
 from functools import partial
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -38,7 +43,6 @@ LayerKind = tuple  # (mixer, mlp) e.g. ("attn", "dense")
 VOCAB_PAD = 256
 
 _NOT_PORTED = {
-    "shared_attn": "the zamba2-7b slice",
     "mla": "the deepseek-v2-lite-16b slice",
     "moe": "the MoE slice (deepseek-v2-lite-16b, llama4-scout)",
     "encoder": "the whisper-large-v3 slice",
@@ -53,10 +57,10 @@ def _not_ported(what: str):
 
 
 def _check_kind(kind: LayerKind) -> None:
-    """Raise unless the layer is an attention block with a dense MLP or a
-    Mamba2 block."""
+    """Raise unless the layer is an attention block with a dense MLP, a
+    Mamba2 block or a shared-attention block."""
     mixer, mlp = kind
-    if mixer not in ("attn", "gattn", "mamba"):
+    if mixer not in ("attn", "gattn", "mamba", "shared_attn"):
         raise _not_ported(mixer)
     if mlp not in ("dense", "none"):
         raise _not_ported(mlp)
@@ -128,13 +132,24 @@ def _attn_spec(cfg: ArchConfig, mixer: str) -> L.AttnLayerSpec:
 
 def init_layer(gen, cfg: ArchConfig, kind: LayerKind, device=None) -> Params:
     _check_kind(kind)
-    mixer, _ = kind
-    if mixer == "mamba":
-        return {"ln": L.rmsnorm_init(cfg.d_model, device),
-                "mamba": M.mamba_init(gen, cfg.d_model, cfg.ssm, device)}
+    mixer, mlp = kind
+    if mixer in ("mamba", "shared_attn"):
+        p = {"ln": L.rmsnorm_init(cfg.d_model, device),
+             "mamba": M.mamba_init(gen, cfg.d_model, cfg.ssm, device)}
+    else:
+        p = {"ln1": L.rmsnorm_init(cfg.d_model, device),
+             "attn": L.attn_init(gen, cfg.d_model, _attn_spec(cfg, mixer),
+                                 device)}
+    if mlp == "dense":      # a shared_attn layer's own MLP is never read
+        p["ln2"] = L.rmsnorm_init(cfg.d_model, device)
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, device)
+    return p
+
+
+def _init_shared_attn(gen, cfg: ArchConfig, device=None) -> Params:
     return {
         "ln1": L.rmsnorm_init(cfg.d_model, device),
-        "attn": L.attn_init(gen, cfg.d_model, _attn_spec(cfg, mixer), device),
+        "attn": L.attn_init(gen, cfg.d_model, _attn_spec(cfg, "attn"), device),
         "ln2": L.rmsnorm_init(cfg.d_model, device),
         "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, device),
     }
@@ -144,12 +159,20 @@ def init_layer(gen, cfg: ArchConfig, kind: LayerKind, device=None) -> Params:
 
 class FwdCtx(NamedTuple):
     positions: torch.Tensor
+    shared: Optional[Params] = None       # zamba2's shared block
     q_chunk: int = 1024
 
 
 def apply_layer(params: Params, x: torch.Tensor, cfg: ArchConfig,
                 kind: LayerKind, ctx: FwdCtx) -> torch.Tensor:
     _check_kind(kind)
+    if kind[0] == "shared_attn":
+        sp = ctx.shared
+        x = x + L.attn_apply(sp["attn"], L.rmsnorm(sp["ln1"], x),
+                             ctx.positions, _attn_spec(cfg, "attn"), ctx.q_chunk)
+        x = x + L.mlp_apply(sp["mlp"], L.rmsnorm(sp["ln2"], x), cfg.mlp_act)
+        return x + M.mamba_apply(params["mamba"], L.rmsnorm(params["ln"], x),
+                                 cfg.ssm)
     if kind[0] == "mamba":
         return x + M.mamba_apply(params["mamba"], L.rmsnorm(params["ln"], x),
                                  cfg.ssm)
@@ -177,15 +200,29 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         p["unembed"] = L._normal(gen, (cfg.d_model, v_pad),
                                  cfg.d_model ** -0.5, device)
+    if any(k[0] == "shared_attn" for k in plan.all_layers()):
+        p["shared_attn"] = _init_shared_attn(gen, cfg, device)
     if plan.prefix:
         p["prefix"] = [init_layer(gen, cfg, kind, device) for kind in plan.prefix]
     if plan.reps:
-        units = [{f"l{j}": init_layer(gen, cfg, kind, device)
-                  for j, kind in enumerate(plan.unit)} for _ in range(plan.reps)]
-        p["stack"] = tree_map(lambda *xs: torch.stack(xs), *units)
+        p["stack"] = _init_stack(gen, cfg, plan, device)
     if plan.tail:
         p["tail"] = [init_layer(gen, cfg, kind, device) for kind in plan.tail]
     return p
+
+
+def _init_stack(gen, cfg: ArchConfig, plan: LayerPlan, device) -> Params:
+    """The repeated units' parameters, each leaf with a leading ``reps``
+    axis: unit r drawn after unit r - 1 and written into its slot, so
+    that the stack and one unit are held at once, not two stacks."""
+    stack = None
+    for r in range(plan.reps):
+        one = {f"l{j}": init_layer(gen, cfg, kind, device)
+               for j, kind in enumerate(plan.unit)}
+        if stack is None:
+            stack = tree_map(lambda x: x.new_empty((plan.reps, *x.shape)), one)
+        tree_map(lambda dst, src: dst[r].copy_(src), stack, one)
+    return stack
 
 
 def _embed_inputs(cfg: ArchConfig, params: Params, batch: dict) -> torch.Tensor:
@@ -250,7 +287,8 @@ def forward(cfg: ArchConfig, params: Params, batch: dict,
     plan = layer_plan(cfg)
     x = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    ctx = FwdCtx(positions=positions, q_chunk=q_chunk)
+    ctx = FwdCtx(positions=positions, shared=params.get("shared_attn"),
+                 q_chunk=q_chunk)
     for lp, kind in zip(params.get("prefix", []), plan.prefix):
         x = apply_layer(lp, x, cfg, kind, ctx)
 
@@ -274,6 +312,12 @@ def forward(cfg: ArchConfig, params: Params, batch: dict,
 def init_layer_cache(cfg: ArchConfig, kind: LayerKind, batch: int,
                      cache_len: int, dtype=torch.float32, device=None) -> dict:
     _check_kind(kind)
+    if kind[0] == "shared_attn":     # one ring per occurrence of the block
+        return {"mamba": M.mamba_cache_init(batch, cfg.d_model, cfg.ssm, dtype,
+                                            device),
+                "shared_kv": L.kv_cache_init(batch, cache_len,
+                                             _attn_spec(cfg, "attn"), dtype,
+                                             device)}
     if kind[0] == "mamba":
         return {"mamba": M.mamba_cache_init(batch, cfg.d_model, cfg.ssm, dtype,
                                             device)}
@@ -304,8 +348,19 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
 
 
 def decode_layer(params: Params, x: torch.Tensor, cfg: ArchConfig,
-                 kind: LayerKind, entry: dict, pos: int):
+                 kind: LayerKind, entry: dict, pos: int,
+                 shared: Optional[Params] = None):
     _check_kind(kind)
+    if kind[0] == "shared_attn":
+        y, kv = L.attn_decode_step(shared["attn"], L.rmsnorm(shared["ln1"], x),
+                                   pos, entry["shared_kv"],
+                                   _attn_spec(cfg, "attn"))
+        x = x + y
+        x = x + L.mlp_apply(shared["mlp"], L.rmsnorm(shared["ln2"], x),
+                            cfg.mlp_act)
+        y, mc = M.mamba_decode_step(params["mamba"], L.rmsnorm(params["ln"], x),
+                                    entry["mamba"], cfg.ssm)
+        return x + y, {"mamba": mc, "shared_kv": kv}
     if kind[0] == "mamba":
         y, mc = M.mamba_decode_step(params["mamba"], L.rmsnorm(params["ln"], x),
                                     entry["mamba"], cfg.ssm)
@@ -328,11 +383,12 @@ def decode_step(cfg: ArchConfig, params: Params, cache: dict,
     _check_supported(cfg)
     plan = layer_plan(cfg)
     x = _embed_inputs(cfg, params, {"tokens": tokens})
+    shared = params.get("shared_attn")
     new_cache: dict = {}
     if plan.prefix:
         new_cache["prefix"] = []
         for lp, kind, entry in zip(params["prefix"], plan.prefix, cache["prefix"]):
-            x, e = decode_layer(lp, x, cfg, kind, entry, pos)
+            x, e = decode_layer(lp, x, cfg, kind, entry, pos, shared)
             new_cache["prefix"].append(e)
     if plan.reps:
         for r in range(plan.reps):
@@ -340,12 +396,12 @@ def decode_step(cfg: ArchConfig, params: Params, cache: dict,
             unit_cache = tree_map(lambda a: a[r], cache["stack"])
             for j, kind in enumerate(plan.unit):
                 x, _ = decode_layer(unit_params[f"l{j}"], x, cfg, kind,
-                                    unit_cache[f"l{j}"], pos)
+                                    unit_cache[f"l{j}"], pos, shared)
         new_cache["stack"] = cache["stack"]
     if plan.tail:
         new_cache["tail"] = []
         for lp, kind, entry in zip(params["tail"], plan.tail, cache["tail"]):
-            x, e = decode_layer(lp, x, cfg, kind, entry, pos)
+            x, e = decode_layer(lp, x, cfg, kind, entry, pos, shared)
             new_cache["tail"].append(e)
 
     logits = _unembed(cfg, params, x)

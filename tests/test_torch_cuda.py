@@ -14,7 +14,9 @@ count's outputs exactly), on sampled problems, adversarial elements and
 a ragged mixed batch with its padded slots, and the eq.-4 sums, plain
 and quantised, whose order of addition is the same, exactly; the decode attention
 (swa_decode) at rtol = atol = 2e-5, the reference's float32 tolerance for
-its decode kernel (online softmax against the dense one); the SSD scan
+its decode kernel (online softmax against the dense one), with gemma2's
+softcap too, and without one bit for bit the outputs it gave before it
+took one; the SSD scan
 (ssd_scan) at 1e-4 against the sequential recurrence and 2e-4 against the
 plain chunked form, the reference's tolerances for its kernel
 (``tests/test_kernels.py``; sums in another order).  The drop-in
@@ -551,6 +553,58 @@ def test_swa_decode_wrapper_checks_operands(dev):
         swa_ops.swa_decode(q16, k16, v16, pos, 7, window=None)
 
 
+# gemma2's heads (16 KV heads, G 2, dh 128) and zamba2's (32, G 1, dh 112)
+@pytest.mark.parametrize("hkv,g,dh", [(16, 2, 128), (32, 1, 112)])
+@pytest.mark.parametrize("window", [4096, None])
+@pytest.mark.parametrize("nsplit", [1, 7, 64])
+@pytest.mark.parametrize("hot", [1.0, 30.0])
+def test_swa_decode_softcap_matches_plain_version(dev, hkv, g, dh, window,
+                                                  nsplit, hot):
+    """Kernel 6 with gemma2's softcap (50) on a ragged ring of 4,100 slots
+    wrapped past qpos 9,000, against its plain version and the split
+    written out; the queries as drawn and scaled by 30, where the tanh
+    bends the scores hard."""
+    q, k, v = _decode_case(dev, 2, 4100, hkv, g, dh, nsplit + hkv)
+    q = q * hot
+    pos = _ring_positions(4100, 9000, dev)
+    out = swa_ops._launch(q, k, v, pos, 9000, window, nsplit, 50.0)
+    kw = dict(window=window, softcap=50.0)
+    torch.testing.assert_close(
+        out, swa_ref.swa_decode_ref(q, k, v, pos, 9000, **kw),
+        rtol=DECODE_TOL, atol=DECODE_TOL)
+    torch.testing.assert_close(
+        out, swa_ref.swa_decode_split_ref(q, k, v, pos, 9000, nsplit=nsplit, **kw),
+        rtol=DECODE_TOL, atol=DECODE_TOL)
+
+
+def test_swa_decode_softcap_goes_through_the_wrapper(dev):
+    """``decode_attention`` and ``swa_decode`` pass the softcap to the
+    launch: one launch each, the capped output apart from the uncapped."""
+    q, k, v = _decode_case(dev, 4, 88, 16, 2, 128, 3)
+    q = q * 30
+    pos = _ring_positions(88, 120, dev)
+    before = cuda_lib.LAUNCHES["swa_decode"]
+    capped = swa_ops.swa_decode(q, k, v, pos, 120, window=4096, softcap=50.0)
+    layer = swa_ops.decode_attention(
+        (q * 128 ** 0.5).reshape(4, 1, 32, 128), k, v, pos, 120, window=4096,
+        n_heads=32, softcap=50.0)
+    assert cuda_lib.LAUNCHES["swa_decode"] == before + 2
+    plain = swa_ref.swa_decode_ref(q, k, v, pos, 120, window=4096, softcap=50.0)
+    torch.testing.assert_close(capped, plain, rtol=DECODE_TOL, atol=DECODE_TOL)
+    torch.testing.assert_close(layer.reshape(capped.shape), plain,
+                               rtol=DECODE_TOL, atol=DECODE_TOL)
+    free = swa_ops.swa_decode(q, k, v, pos, 120, window=4096)
+    assert float((free - capped).abs().max()) > 1e-2
+    with pytest.raises(ValueError, match="softcap"):
+        swa_ops._launch(q, k, v, pos, 120, None, 1, 0.0)
+
+
+def test_swa_decode_without_softcap_is_unchanged(dev):
+    """Without a softcap the kernel gives, bit for bit, the outputs it
+    gave before it took one (``chip_smoke.DECODE_DIGESTS``)."""
+    assert chip_smoke.decode_digests(torch, dev) == list(chip_smoke.DECODE_DIGESTS)
+
+
 @pytest.mark.parametrize("d_model", [64, 256])
 def test_decode_step_on_the_card_matches_forward(dev, d_model):
     """A reduced gemma3 (local rings of 64, global layers) teacher-forced
@@ -568,6 +622,29 @@ def test_decode_step_on_the_card_matches_forward(dev, d_model):
         torch.testing.assert_close(logits[:, 0], full[:, i], rtol=MODEL_TOL,
                                    atol=MODEL_TOL)
     assert cuda_lib.LAUNCHES["swa_decode"] == before + 130 * cfg.n_layers
+
+
+@pytest.mark.parametrize("name,n_layers", [("gemma2-27b", 5), ("zamba2-7b", 13),
+                                           ("h2o-danube-3-4b", 3)])
+def test_reduced_archs_decode_on_the_card_matches_forward(dev, name, n_layers):
+    """gemma2 (the softcapped decode), zamba2 (the shared block over two
+    occurrences, kernel 5 in forward) and danube reduced, teacher-forced
+    for 160 steps through kernel 6 against forward."""
+    cfg = ARCHS[name].reduced(n_layers=n_layers)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    tokens = torch.randint(0, cfg.vocab, (2, 160), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    full, _ = T.forward(cfg, params, {"tokens": tokens})
+    cache = T.init_cache(cfg, 2, 160, device=dev)
+    n_attn = sum(k[0] in ("attn", "gattn", "shared_attn")
+                 for k in T.layer_plan(cfg).all_layers())
+    before = cuda_lib.LAUNCHES["swa_decode"]
+    for i in range(160):
+        logits, cache = T.decode_step(cfg, params, cache, tokens[:, i:i + 1], i)
+        torch.testing.assert_close(logits[:, 0], full[:, i], rtol=MODEL_TOL,
+                                   atol=MODEL_TOL)
+    assert cuda_lib.LAUNCHES["swa_decode"] == before + 160 * n_attn
 
 
 def test_batched_server_on_the_card_launches_the_kernel(dev):
