@@ -16,7 +16,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    solve kernels bit for bit, also on adversarial elements and a padded
    mixed batch; the decode attention also with gemma2's softcap at its
    heads, and without one bit for bit the outputs recorded before it
-   took one);
+   took one; the SSD scan's forward bit for bit the outputs recorded
+   before its backward came);
 3. time each kernel with CUDA events (the solve kernels as device time
    with their launches queued behind a spin kernel, beside the bound on
    the steps their function needs on these inputs; the decode attention, whose
@@ -24,7 +25,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    scan's passes by the profiler's device time; the quantised sum's two
    kernels as device time with their launches queued behind a spin
    kernel; the decode attention with gemma2's softcap beside the same
-   launches without it) beside its bound, its
+   launches without it; the SSD scan's backward, its six passes apart,
+   as device time queued behind a spin kernel at the training batch and
+   at 32,768 tokens) beside its bound, its
    plain version and (for the plain aggregate, the quantised sum's scale
    pass and the decode attention) one PyTorch library call, and profile
    a few rounds of each sweep; the quantised sum with every row live is
@@ -94,9 +97,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one round;
    and the entry points ``closed_loop_demo``, ``fading_rounds``,
    ``quickstart`` and ``compression_study`` on the card;
-11. drive the training slice (``repro_torch.launch.train``): a mamba2
-   train step on the card must raise (kernel 5 has no backward); the
-   driver at demo-100m's full width (116,411,136 parameters) on the card
+11. drive the training slice (``repro_torch.launch.train``): kernel 6
+   under autograd must raise (it has no backward); the driver at
+   demo-100m's full width (116,411,136 parameters) on the card
    against its own CPU run (B = 2, S = 64, 3 steps, the same parameters
    and draws: loss 1e-5, grad_norm 1e-4, parameters within the steps'
    learning rates); the driver at its defaults for 100 steps (cut from
@@ -104,7 +107,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    deterministic algorithms, with its step time, tokens/s and a profiled
    idle share; gemma3-1b at full width, 2 steps at B = 16, S = 256, each
    step's loss equal to ``lm_loss`` without autograd to 1e-5, and the peak
-   device memory.  No kernel lies on this path;
+   device memory (no kernel lies on these paths); then mamba2: (d1) the
+   SSD scan's backward kernel against its plain backward at mamba2-780m's
+   widths (random and layer-0 operands at B = 4, S = 2,048 and B = 1,
+   S = 32,768, an initial state and the final state's cotangent, the
+   stress decays, reduced and ragged shapes), bitwise equal from call to
+   call; (d2) mamba2-780m at full width cut to 4 of its 48 layers, 3
+   steps at B = 2, S = 512 on the card against its own CPU run (random
+   loss weights; parameters within the most two AdamW runs can part);
+   (d3) the driver at mamba2-780m's full width and depth, 20 rounds at
+   B = 4, S = 2,048 under deterministic algorithms, every train step
+   launching kernel 5 96 times and its backward 48 times, with its step
+   time, tokens/s, peak memory, a profiled idle share and kernel 5's
+   device time a step; then the driver's resume at (d2)'s 4-layer cut and
+   (d3)'s batch and rounds, from its round-10 checkpoint, bit for bit
+   under deterministic algorithms (at full depth each of its checkpoints
+   takes 9.4 GB); (d4) zamba2-7b reduced to 13 layers, a step on the
+   card against the CPU;
 12. the analysis gate (``repro_torch.analysis``) on the card: the
    rank-contract sweep (486 combinations, every round column bitwise the
    column-sliced rank-1 problem's) with no finding, and each of the five
@@ -203,6 +222,27 @@ DECODE_TOL = 2e-5       # decode attention: the reference's float32 tolerance
 # sequential recurrence and for its wrapper against the chunked form
 SSD_SEQ_TOL = 1e-4
 SSD_TOL = 2e-4
+# its backward against the plain backward on the same forward scratch: each
+# gradient's max|kernel - plain| over its max|plain|, the forward's 2e-4
+# (products in 3xTF32 and sums in another order, about 1e-6 apart).  Under
+# the stress decays (dt x 300, A x 4) a's gradient sums dt (up to 30) times
+# a reverse cumsum over the chunk in which terms up to the chunk's whole
+# intra sum cancel: float32 rounding alone puts the plain version 1.7e-4 to
+# 4.6e-4 of its max-norm from float64 there (CPU), so 2e-3 for it
+SSD_BWD_TOL = 2e-4
+SSD_BWD_STRESS_DA_TOL = 2e-3
+SSD_GRADS = ("dx", "ddt", "da", "dB", "dC", "dD", "d_init")
+# kernel 5's forward bit for bit as it was before its backward came: (B, S,
+# H, P, N, chunk, init) of numpy-made operands (``ssd_digests``), and the
+# first 16 hex digits of the SHA-256 of y's and the final state's bytes,
+# as the kernels built from the tree before the backward gave them on an
+# H100 (CUDA 12.8, torch 2.11)
+SSD_DIGEST_CASES = ((1, 1024, 48, 64, 128, 256, True),
+                    (2, 128, 16, 32, 16, 32, False),
+                    (3, 40, 5, 7, 5, 8, True),
+                    (1, 192, 3, 48, 100, 96, False))
+SSD_DIGESTS = ("712db070cb8b4a68", "6d4d82f4a723d956", "5397dbadc82db638",
+               "84f568af2787ee27")
 SELF_CHECK_TOL = 1e-3   # full-width decode logits against forward's
 # gemma3-1b's attention: MQA, one KV head for G = 4 query heads of 256
 GEMMA3_HEADS = (1, 4, 256)
@@ -230,6 +270,9 @@ SERVE_GENS = (24, 600)  # the reference server's default, and past the window
 MAMBA2_SSD = (48, 64, 128, 256)
 MAMBA2_PREFILLS = ((1, 32768), (4, 4096))
 MAMBA2_SELF_CHECK = (2, 512)        # teacher-forced decode: 2 chunks
+# the backward's shapes (B, S): the training run's batch, and prefill_32k's
+# length
+MAMBA2_BWD = ((4, 2048), (1, 32768))
 # phase [13]: the remaining attention archs at full width, one after the
 # other; gemma2-27b cut to 24 of its 46 layers (12 local/global pairs),
 # since its 108.9 GB of float32 weights do not fit the card's 80 GB
@@ -291,13 +334,40 @@ TRAIN_TIMED_FROM = 10          # the step time's median over steps 10-100
 TRAIN_FREE_STEPS = 20          # steps timed without deterministic algorithms
 TRAIN_PROFILED = 5
 GEMMA3_TRAIN = (16, 256, 2)    # B, S, steps
+# (d) mamba2 training through kernel 5 and its backward: (d2) mamba2-780m
+# at full width cut to 4 of its 48 layers for the CPU's sake, card against
+# CPU; (d3) the driver at full width and depth, B = 4, S = 2,048, 20
+# rounds; its resume, checkpointed at round 10, at (d2)'s 4-layer cut (a
+# checkpoint of the full depth's parameters and moments takes 9.4 GB, and
+# three writes and a read of it took about 60 s on the H100); (d4) zamba2-7b
+# reduced to 13 layers (two stacked units of five Mamba2 mixers and the
+# shared block, and a tail)
+MAMBA2_CARD_CPU = (4, 2, 512, 3)       # layers, B, S, steps
+MAMBA2_TRAIN = ["--arch", "mamba2-780m", "--batch", "4", "--seq", "2048",
+                "--steps", "20", "--log-every", "1"]
+MAMBA2_TRAIN_CKPT = 10
+# mamba2-780m's 3.1 GB gradient payload leaves E[participants] at 0.56 of
+# the driver's 64 clients, so about 2 rounds in 5 train (8 of 20 on the
+# H100); the step time is the median over the trained steps from
+# the third on
+MAMBA2_TIMED_FROM = 3
+MAMBA2_PROFILED = 2
+ZAMBA2_TRAIN = (13, 2, 64, 1)          # layers, B, S, steps
 # the CPU tests' tolerances (tests/test_torch_train.py): the loss 1e-5
 # relative; grad_norm 1e-4 (it sums the squares of gradients rounded to
 # bfloat16 on their way back through cast_bf16, where float32 sums in
 # another order flip a rounding now and then); after k steps every
 # parameter within k learning rates (a flipped gradient takes another
-# AdamW step, at most about lr) and all but 1e-3 of them within 1e-5
+# AdamW step, at most about lr) and all but 1e-3 of them within 1e-5.
+# The mamba2 and zamba2 checks (train_against_cpu) hold each parameter
+# instead within the most two AdamW runs from one start can part
+# (adam_apart_bound, about 2 lr a step): where a gradient lies near eps,
+# its float32 rounding alone can move the parameter by up to lr one way
+# on one device and about 0 on the other, so k lr is reached by
+# construction (zamba2's one step read 0.99 of it on the H100); the share
+# beyond 1e-5 is the check that bites
 TRAIN_LR = 3e-4
+ADAM_BETAS = (0.9, 0.999)              # make_train_step's AdamW
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GNORM_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-5
@@ -1482,12 +1552,13 @@ def grid_plans(dev, rounds: int):
 
 
 def profile_run(torch, label: str, fn, per: int, unit: str,
-                kernel: str | None) -> None:
+                kernel) -> dict:
     """Where the time of a warm ``fn`` goes: wall time against device-busy
-    time (torch.profiler), the idle share, ``kernel``'s share of device
-    time where ``kernel`` names one, and device time by kernel.  ``fn(k)``
-    is called twice, k = 0 timed and k = 1 profiled; one call makes
-    ``per`` ``unit``s."""
+    time (torch.profiler), the idle share, the share of device time of
+    ``kernel`` (a name, a tuple of names or None), and device time by
+    kernel.  ``fn(k)`` is called twice, k = 0 timed and k = 1 profiled;
+    one call makes ``per`` ``unit``s.  Returns each named kernel's device
+    ms per ``unit``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1504,11 +1575,14 @@ def profile_run(torch, label: str, fn, per: int, unit: str,
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / per
-    kern_events = [e for e in events if kernel and kernel_re(kernel).search(e.key)]
-    kern_ms = sum(e.self_device_time_total for e in kern_events) / 1e3 / per
-    share = (f"; {kernel} {kern_ms:.3f} ms per {unit}, {kern_ms / busy_ms:.3f} "
-             f"of device time, {kern_ms / wall_ms:.3f} of wall time"
-             if kernel and busy_ms else "")
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel or ())
+    kern_events = {name: [e for e in events if kernel_re(name).search(e.key)]
+                   for name in names}
+    kern_ms = {name: sum(e.self_device_time_total for e in evs) / 1e3 / per
+               for name, evs in kern_events.items()}
+    share = "".join(f"; {name} {ms:.3f} ms per {unit}, {ms / busy_ms:.3f} of "
+                    f"device time, {ms / wall_ms:.3f} of wall time"
+                    for name, ms in kern_ms.items()) if busy_ms else ""
     print(f"  {label}: {wall_ms:.3f} ms wall per {unit}, device busy "
           f"{busy_ms:.3f} ms under the profiler "
           f"({sum(e.count for e in events) / per:.0f} device operations a {unit})"
@@ -1517,11 +1591,13 @@ def profile_run(torch, label: str, fn, per: int, unit: str,
     for e in events[:12]:
         print(f"    {e.self_device_time_total / 1e3 / per:10.4f} ms/{unit} "
               f"{e.count / per:8.1f} calls a {unit}  {e.key[:90]}")
-    if len(kern_events) > 1:
-        print(f"  {kernel} by kernel function:")
-        for e in kern_events:
-            print(f"    {e.self_device_time_total / 1e3 / per:10.4f} ms/{unit} "
-                  f"{e.count / per:8.1f} calls a {unit}  {e.key[:90]}")
+    for name, evs in kern_events.items():
+        if len(evs) > 1:
+            print(f"  {name} by kernel function:")
+            for e in evs:
+                print(f"    {e.self_device_time_total / 1e3 / per:10.4f} ms/{unit} "
+                      f"{e.count / per:8.1f} calls a {unit}  {e.key[:90]}")
+    return kern_ms
 
 
 def profile_sweep(torch, dev, label: str, built, kernel: str,
@@ -2318,6 +2394,117 @@ def check_ssd(torch, dev, cfg, params) -> float:
     check(all(torch.equal(y, runs[0][0]) and torch.equal(st, runs[0][1])
               for y, st in runs[1:]), "ssd_scan: repeated launches differ")
     print(f"  ssd_scan {cases[0][0]}: 3 launches, the same bits")
+    got = ssd_digests(torch, dev)
+    print(f"  ssd_scan forward digests {got} (recorded before the backward "
+          f"came: {list(SSD_DIGESTS)})")
+    check(got == list(SSD_DIGESTS), "ssd_scan's forward changed its bits")
+    return worst
+
+
+def ssd_digests(torch, dev) -> list:
+    """The first 16 hex digits of the SHA-256 of kernel 5's outputs (y,
+    then the final state) on operands drawn with numpy for each of
+    ``SSD_DIGEST_CASES``."""
+    import hashlib
+    import numpy as np
+    from repro_torch.kernels.ssd_scan import ops
+    out = []
+    for i, (b, s, h, p, n, cs, init) in enumerate(SSD_DIGEST_CASES):
+        rng = np.random.default_rng(200 + i)
+        arrays = (rng.normal(size=(b, s, h, p)), rng.uniform(0.001, 0.1, (b, s, h)),
+                  -rng.uniform(0.5, 4.0, h), rng.normal(size=(b, s, n)) * 0.3,
+                  rng.normal(size=(b, s, n)) * 0.3, rng.normal(size=h),
+                  rng.normal(size=(b, h, p, n)) if init else None)
+        x, dt, a, bm, cm, d, s0 = (
+            None if v is None else torch.from_numpy(v.astype(np.float32)).to(dev)
+            for v in arrays)
+        with torch.no_grad():
+            y, state = ops.ssd_apply(x, dt, a, bm, cm, d, chunk=cs,
+                                     init_state=s0, return_state=True)
+        out.append(hashlib.sha256(y.cpu().numpy().tobytes()
+                                  + state.cpu().numpy().tobytes()).hexdigest()[:16])
+    return out
+
+
+def grad_err(got, want) -> float:
+    """max|got - want| over max|want| (over 1 where want is zero)."""
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / (scale if scale > 0 else 1.0)
+
+
+def ssd_backward_pair(torch, ops_, s0, chunk, seed, cotangent_state=True):
+    """Kernel 5's forward on the card, then its backward kernel and the
+    plain backward on the same scratch, for cotangents drawn from
+    ``seed``: (kernel's gradients, plain gradients)."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+    x = ops_[0]
+    b, _, h, p = x.shape
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    dy = torch.randn(x.shape, device=x.device, generator=gen)
+    d_final = (torch.randn((b, h, p, ops_[3].shape[-1]), device=x.device,
+                           generator=gen) if cotangent_state else None)
+    with torch.no_grad():
+        _, _, cum, states, scores = ops._forward_card(*ops_, chunk, s0)
+        got = ops._backward_card(dy, d_final, *ops_, chunk, cum, states, scores)
+        want = ref.ssd_bwd_passes_ref(dy, d_final, *ops_, chunk, cum, states,
+                                      scores)
+    return got, want
+
+
+def check_ssd_bwd(torch, dev, cfg=None, params=None) -> float:
+    """(d1) The backward kernel against the plain backward at mamba2-780m's
+    widths (random and, given the model, layer-0 operands) at the training
+    batch and prefill_32k's length, with an initial state and the final
+    state's cotangent, the stress decays, and the reduced and ragged
+    shapes; each gradient within SSD_BWD_TOL of its max-norm; then three
+    calls at the first shape, the same bits.  Returns the largest
+    max|kernel - plain| of any gradient."""
+    h, p, n, cs = MAMBA2_SSD
+    cases = []      # (label, operands, init, chunk, the final state's cotangent)
+    for b, s in MAMBA2_BWD:
+        ops_, s0 = ssd_operands(torch, dev, b, s, h, p, n, 3 * s + b, init=True)
+        cases.append((f"mamba2 B={b} S={s}, init_state", ops_, s0, cs, True))
+        if params is not None:
+            cases.append((f"mamba2 layer 0 B={b} S={s}",
+                          layer0_operands(torch, dev, cfg, params, b, s, b), None,
+                          cs, False))
+    (x, dt, a, bm, cm, d), _ = ssd_operands(torch, dev, 1, 1024, h, p, n, 99)
+    cases.append(("mamba2, dt x 300 and A x 4", (x, dt * 300.0, a * 4.0, bm, cm, d),
+                  None, cs, True))
+    for label, (b, s, hh, pp, nn, ch), init in (
+            ("reduced, init_state", (2, 128, 16, 32, 16, 32), True),
+            ("ragged", (1, 192, 3, 48, 100, 96), False),
+            ("ragged, init_state", (3, 40, 5, 7, 5, 8), True),
+            ("ragged", (1, 130, 2, 33, 1, 65), False)):
+        ops_, s0 = ssd_operands(torch, dev, b, s, hh, pp, nn, s + pp + nn, init)
+        cases.append((label, ops_, s0, ch, init))
+    worst = 0.0
+    for i, (label, ops_, s0, ch, cot) in enumerate(cases):
+        got, want = ssd_backward_pair(torch, ops_, s0, ch, 50 + i, cot)
+        torch.cuda.synchronize()
+        errs = {name: grad_err(u, v) for name, u, v in zip(SSD_GRADS, got, want)}
+        stress = "dt x 300" in label
+        tol = {name: SSD_BWD_STRESS_DA_TOL if stress and name == "da"
+               else SSD_BWD_TOL for name in SSD_GRADS}
+        b, s, hh, pp = ops_[0].shape
+        print(f"  ssd_scan_bwd {label}: B={b} S={s} H={hh} P={pp} "
+              f"N={ops_[3].shape[-1]} chunk={ch}: max|kernel - plain| / "
+              f"max|plain| " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (tol {SSD_BWD_TOL:g}" + (f"; da {SSD_BWD_STRESS_DA_TOL:g}"
+                                           if stress else "") + ")")
+        check(all(bool(torch.isfinite(u).all()) for u in got),
+              f"ssd_scan_bwd {label}: a non-finite gradient")
+        bad = [k for k, v in errs.items() if not v <= tol[k]]
+        check(not bad, f"ssd_scan_bwd {label}: {bad} beyond tolerance: {errs}")
+        worst = max([worst] + [float((u - v).abs().max())
+                               for u, v in zip(got, want)])
+        del got, want
+    # the same bits from call to call, at the first shape
+    label, ops_, s0, ch, cot = cases[0]
+    runs = [ssd_backward_pair(torch, ops_, s0, ch, 50, cot)[0] for _ in range(3)]
+    check(all(torch.equal(u, v) for run in runs[1:] for u, v in zip(run, runs[0])),
+          "ssd_scan_bwd: repeated calls differ")
+    print(f"  ssd_scan_bwd {label}: 3 calls, the same bits")
     return worst
 
 
@@ -2387,6 +2574,77 @@ def time_ssd(torch, dev) -> tuple[dict, list]:
                        library_ms=None)
         del ops_
     return rec, per_shape
+
+
+def ssd_bwd_work(b, s, h, p, n, cs) -> tuple[float, float, float]:
+    """The least work of the scan's backward, (operations of the products,
+    the other operations, bytes), counted as ``ssd_work``: per head the
+    gradient of the entering state (e dy)^T C, of C's inter term (e dy)
+    S_in (summed over the heads after), U = B dS^T and (w x)^T dS, each
+    cs P N; dM = dy x^T and M^T dy over the causal triangle; then dG B
+    and dG^T C once per (batch row, chunk), C.B^T read from the forward.
+    The other operations: per entry of the triangle and head the decay's
+    exponent and its products with G, dt, dM and the sums (11), per
+    (step, head, p) the state term's, skip's and dots' (11), per state
+    entry the carry's (5), per step and head the reverse sums (20).
+    Bytes: x, dy, B, C, dt, a, D, the final state's cotangent and the
+    forward's scratch (cum, entering states, C.B^T) read once; dx, ddt,
+    da, dB, dC, dD and the initial state's gradient written once."""
+    tri = cs * (cs + 1) // 2
+    products = 2 * (2 * tri * n + h * (4 * cs * p * n + 2 * tri * p))
+    other = h * (11 * tri + 11 * cs * p + 5 * p * n + 20 * cs)
+    nc = b * (s // cs)
+    nbytes = 4 * (3 * b * s * h * p + 4 * b * s * n + 3 * b * s * h + 4 * h
+                  + 2 * b * h * p * n + nc * (h * p * n + cs * cs))
+    return nc * products, nc * other, nbytes
+
+
+def ssd_bwd_bound(b, s, h, p, n, cs) -> tuple[float, str]:
+    """(bound ms, what bounds it): the products at the 3xTF32 rate, the
+    rest at float32's, or the bytes at the memory's rate."""
+    products, other, nbytes = ssd_bwd_work(b, s, h, p, n, cs)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = products / (TF32_OPS_PER_S / 3) + other / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ssd_bwd(torch, dev) -> dict:
+    """The backward kernel's device time (``queued_ms``, its six passes
+    apart by the profiler) and the plain backward's (CUDA events) on the
+    same forward scratch, beside the bound, at the training batch and at
+    prefill_32k's length.  Returns the record at the training batch, the
+    shape the main path gives it.  No single PyTorch call computes it."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+    h, p, n, cs = MAMBA2_SSD
+    rec = None
+    for b, s in MAMBA2_BWD:
+        ops_, s0 = ssd_operands(torch, dev, b, s, h, p, n, 5 * s + b, init=True)
+        gen = torch.Generator(device=dev).manual_seed(s)
+        dy = torch.randn(ops_[0].shape, device=dev, generator=gen)
+        d_final = torch.randn((b, h, p, n), device=dev, generator=gen)
+        with torch.no_grad():
+            _, _, cum, states, scores = ops._forward_card(*ops_, cs, s0)
+            args = (dy, d_final, *ops_, cs, cum, states, scores)
+            ms = queued_ms(torch, lambda: ops._backward_card(*args), 10)
+            _, dev_ms, passes = device_ms(
+                torch, lambda: ops._backward_card(*args), 3, "ssd_bwd")
+            plain_ms = cuda_ms(torch, lambda: ref.ssd_bwd_passes_ref(*args), 3)
+        b_ms, b_by = ssd_bwd_bound(b, s, h, p, n, cs)
+        print(f"  ssd_scan_bwd B={b} S={s} (H={h} P={p} N={n} chunk={cs}): "
+              f"kernel {ms:.6f} ms (device time, queued), plain {plain_ms:.6f} "
+              f"ms, library none, bound {b_ms:.6f} ms ({b_by}: products at 495 "
+              f"/ 3 TFLOP/s, the rest at 67); kernel at {b_ms / ms:.3f} of its "
+              f"bound")
+        print(f"    its passes by the profiler ({dev_ms:.6f} ms of device time "
+              f"a call, by kernel function):")
+        for name, t in passes.items():
+            print(f"    {t:10.6f} ms  {t / dev_ms:.3f}  {name[:90]}")
+        if rec is None:
+            rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None)
+        del ops_, s0, dy, d_final, cum, states, scores, args
+    return rec
 
 
 def init_mamba2(torch, dev):
@@ -2995,10 +3253,28 @@ def recorded_draws(record: list):
     return wrap
 
 
-def params_apart(torch, got, want, steps: int) -> tuple[float, float]:
+def adam_apart_bound(steps: int, lr: float = TRAIN_LR) -> float:
+    """The most one parameter can part between two AdamW runs (betas
+    ADAM_BETAS) from the same start after ``steps`` steps, whatever their
+    gradients: step t's update is at most lr U_t in size, U_t = (1 - b1)
+    / (1 - b1^t) sqrt(sum_{j<t} (b1^2 / b2)^j) sqrt((1 - b2^t) / (1 - b2))
+    (Cauchy-Schwarz on the bias-corrected moments; U_1 = 1), so two runs
+    part by at most 2 lr sum_t U_t; decoupled weight decay only shrinks
+    the gap."""
+    b1, b2 = ADAM_BETAS
+    total = 0.0
+    for t in range(1, steps + 1):
+        total += ((1 - b1) / (1 - b1 ** t)
+                  * math.sqrt(sum((b1 * b1 / b2) ** j for j in range(t)))
+                  * math.sqrt((1 - b2 ** t) / (1 - b2)))
+    return 2 * lr * total
+
+
+def params_apart(torch, got, want, steps: int,
+                 limit: float | None = None) -> tuple[float, float]:
     """(largest |difference|, share of the elements beyond
-    TRAIN_PARAM_ATOL) of two parameter trees, checked against the step
-    tolerance after ``steps`` steps."""
+    TRAIN_PARAM_ATOL) of two parameter trees, checked against ``limit``,
+    by default the step tolerance after ``steps`` steps."""
     from repro_torch.tree import tree_leaves
     big = apart = total = 0
     for a, b in zip(tree_leaves(got), tree_leaves(want)):
@@ -3006,9 +3282,10 @@ def params_apart(torch, got, want, steps: int) -> tuple[float, float]:
         big = max(big, float(d.max()))
         apart += int((d > TRAIN_PARAM_ATOL).sum())
         total += d.numel()
-    check(big <= steps * TRAIN_LR and apart <= TRAIN_PARAM_SHARE * total,
-          f"parameters apart by up to {big:.3e}, {apart / total:.2e} of them "
-          f"beyond {TRAIN_PARAM_ATOL:g}")
+    limit = steps * TRAIN_LR if limit is None else limit
+    check(big <= limit and apart <= TRAIN_PARAM_SHARE * total,
+          f"parameters apart by up to {big:.3e} (limit {limit:.3e}), "
+          f"{apart / total:.2e} of them beyond {TRAIN_PARAM_ATOL:g}")
     return big, apart / total
 
 
@@ -3235,41 +3512,279 @@ def train_gemma3(torch, dev, tag: str) -> None:
     del params, opt_state, m
 
 
-def train_guard(torch, dev) -> None:
-    """(d) A mamba2 train step on the card raises: kernel 5 has no
-    backward, and its output would drop every gradient before it."""
-    from repro_torch.configs import get_arch
+def mixer_launches(cfg, steps: int) -> tuple[int, int]:
+    """Kernel 5's (forward, backward) wrapper calls over ``steps`` train
+    steps: every Mamba2 mixer runs its backward once a step, and its
+    forward once, or twice in a stacked unit (remat "full" runs the
+    unit's forward again in the backward)."""
+    from repro_torch.models import transformer as T
+    plan = T.layer_plan(cfg)
+
+    def mixers(kinds):
+        return sum(k[0] in ("mamba", "shared_attn") for k in kinds)
+    stacked = plan.reps * mixers(plan.unit)
+    alone = mixers(plan.prefix) + mixers(plan.tail)
+    return steps * (2 * stacked + alone), steps * (stacked + alone)
+
+
+def train_swa_guard(torch, dev) -> None:
+    """Kernel 6, which has no backward, refuses autograd on the card."""
+    from repro_torch.kernels.swa_decode import ops
+    q, k, v = decode_operands(torch, dev, 2, 64, 1, 4, 64, seed=0)
+    pos = ring_positions(torch, 64, 70, dev)
+    try:
+        ops.swa_decode(q.clone().requires_grad_(True), k, v, pos, 70, window=None)
+    except NotImplementedError as e:
+        print(f"  kernel 6 under autograd on the card raises "
+              f"NotImplementedError: {e}")
+    else:
+        fail("swa_decode ran under autograd on the card, without a backward")
+
+
+def train_ssd_bwd(torch, dev) -> float:
+    """(d1) The backward kernel against the plain backward at
+    mamba2-780m's widths, its layer-0 operands from the full-width model."""
+    cfg, params = init_mamba2(torch, dev)
+    err = check_ssd_bwd(torch, dev, cfg, params)
+    del params
+    return err
+
+
+def train_against_cpu(torch, dev, cfg, shape, label: str, tag: str) -> dict:
+    """``steps`` train steps of ``cfg`` (``shape`` = (B, S, steps)) on the
+    card and on the CPU from the same seeded parameters and the driver's
+    synthetic batches, with random loss weights summing to 1: each
+    step's loss and grad_norm held at the CPU tests' tolerances, the
+    parameters at the end within ``adam_apart_bound`` and all but
+    TRAIN_PARAM_SHARE of them within TRAIN_PARAM_ATOL, and kernel 5
+    launched as ``mixer_launches`` says.  Returns the card's launch
+    counts."""
+    import numpy as np
+    from repro_torch.data.lm import SyntheticLMData
     from repro_torch.kernels import cuda_lib
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import transformer as T
-    cfg = get_arch("mamba2-780m").reduced()
+    from repro_torch.tree import tree_leaves, tree_map
+    b, s, steps = shape
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev)
-    step, opt = make_train_step(cfg, q_chunk=128)
-    tokens = torch.randint(0, cfg.vocab, (2, 64), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(1))
+    host = tree_map(lambda t: t.cpu(), params)
+    n = sum(x.numel() for x in tree_leaves(params))
+    step, opt = make_train_step(cfg, lr=TRAIN_LR, q_chunk=max(s, 128))
+    state, host_state = opt.init(params), opt.init(host)
+    data = SyntheticLMData(64, cfg.vocab, seed=1)
+    rng = np.random.default_rng(2)
+    rows, t_card, t_cpu = [], 0.0, 0.0
+    torch.cuda.synchronize()
     cuda_lib.reset_launch_counts()
-    try:
-        step(params, opt.init(params), {"tokens": tokens, "labels": tokens})
-    except NotImplementedError as e:
-        print(f"  (d) a mamba2-780m reduced() train step on the card raises "
-              f"NotImplementedError: {e}")
-    else:
-        fail("a mamba2 train step on the card ran through kernel 5, which "
-             "has no backward")
-    check(cuda_lib.LAUNCHES["ssd_scan"] == 0, "kernel 5 launched under autograd")
+    for k in range(steps):
+        batch = {key: torch.from_numpy(v) for key, v in
+                 data.batch(rng.integers(0, 64, b), s).items()}
+        w = rng.random(b)
+        batch["loss_weights"] = torch.from_numpy((w / w.sum()).astype(np.float32))
+        t0 = time.perf_counter()
+        params, state, m = step(params, state,
+                                {key: v.to(dev) for key, v in batch.items()})
+        card = (float(m["loss"]), float(m["grad_norm"]))
+        t_card += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host, host_state, hm = step(host, host_state, batch)
+        cpu = (float(hm["loss"]), float(hm["grad_norm"]))
+        t_cpu += time.perf_counter() - t0
+        rows.append((card, cpu))
+        check(math.isfinite(card[0]) and abs(card[0] / cpu[0] - 1) <= TRAIN_LOSS_RTOL
+              and abs(card[1] / cpu[1] - 1) <= TRAIN_GNORM_RTOL,
+              f"{label} step {k + 1}: loss {card[0]} / {cpu[0]}, grad_norm "
+              f"{card[1]} / {cpu[1]}")
+    launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    fwd, bwd = mixer_launches(cfg, steps)
+    want = {k: v for k, v in (("ssd_scan", fwd), ("ssd_scan_bwd", bwd)) if v}
+    check(launches == want,
+          f"{label}: launches {launches}, not {fwd} forward and {bwd} backward")
+    limit = adam_apart_bound(steps)
+    big, share = params_apart(torch, params, host, steps, limit)
+    print(f"  {label} ({n:,} parameters), B={b} S={s}, {steps} steps, card "
+          f"against CPU: losses {[round(c[0], 6) for c, _ in rows]} / "
+          f"{[round(c[0], 6) for _, c in rows]}, largest relative loss gap "
+          f"{max(abs(c[0] / u[0] - 1) for c, u in rows):.2e} (tol "
+          f"{TRAIN_LOSS_RTOL:g}), grad_norm gap "
+          f"{max(abs(c[1] / u[1] - 1) for c, u in rows):.2e} (tol "
+          f"{TRAIN_GNORM_RTOL:g}); parameters apart by up to {big:.3e} (tol "
+          f"{limit:.4e}, the most two AdamW runs part in {steps} steps: "
+          f"{big / limit:.2f} of it), {share:.2e} of them beyond "
+          f"{TRAIN_PARAM_ATOL:g} (tol {TRAIN_PARAM_SHARE:g}); kernel 5 "
+          f"launches {launches}; card {t_card:.1f} s, CPU {t_cpu:.1f} s {tag}")
+    return launches
 
 
-def run_training(torch, dev, card_line: str) -> None:
+def train_mamba2(torch, dev, tag: str) -> dict:
+    """(d3) ``repro_torch.launch.train`` at mamba2-780m's full width and
+    depth (``MAMBA2_TRAIN``) under deterministic algorithms: kernel 5
+    launched as ``mixer_launches`` says; the step time, tokens/s and peak
+    memory; then MAMBA2_PROFILED profiled steps outside deterministic
+    mode: the idle share and kernel 5's forward and backward device time
+    a step.  Returns the run's launch counts."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import SyntheticLMData
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    cfg = get_arch("mamba2-780m")
+    b, s = 4, 2048
+    with deterministic(torch):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        whole = train.run(train.parse_args(MAMBA2_TRAIN))
+        torch.cuda.synchronize()
+        t_whole = time.perf_counter() - t0
+        launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    n_steps = len(whole["step_s"])
+    fwd, bwd = mixer_launches(cfg, n_steps)
+    check(launches == {"ssd_scan": fwd, "ssd_scan_bwd": bwd},
+          f"the mamba2 driver launched {launches}, not {fwd} forward and "
+          f"{bwd} backward over {n_steps} steps")
+    losses = [h["loss"] for h in whole["history"]]
+    check(all(math.isfinite(x) for x in losses), f"a non-finite loss: {losses}")
+    step_s = whole["step_s"][MAMBA2_TIMED_FROM - 1:]
+    med = float(np.median(step_s))
+    rounds = int(MAMBA2_TRAIN[MAMBA2_TRAIN.index("--steps") + 1])
+    print(f"  (d3) the driver at mamba2-780m's full width and depth (48 layers), "
+          f"B={b} S={s}: {rounds} rounds, {n_steps} of them with a participant "
+          f"and so a train step, in {t_whole:.1f} s, losses "
+          f"{[round(x, 4) for x in losses]}; launches {launches} "
+          f"({fwd // n_steps} forward and {bwd // n_steps} backward wrapper "
+          f"calls a step)")
+    print(f"  step time (median of trained steps {MAMBA2_TIMED_FROM}-{n_steps}, "
+          f"deterministic algorithms, the round's host work included): "
+          f"{med * 1e3:.3f} ms (min {min(step_s) * 1e3:.3f}, max "
+          f"{max(step_s) * 1e3:.3f}), {b * s / med:.0f} tokens/s; peak device "
+          f"memory {peak:.2f} GiB {tag}")
+
+    # where a step's time goes, on the driver's batches, outside
+    # deterministic mode
+    step, _ = make_train_step(cfg, lr=TRAIN_LR, q_chunk=s)
+    data = SyntheticLMData(64, cfg.vocab, seed=1)
+    rng = np.random.default_rng(4)
+    batches = []
+    for _ in range(MAMBA2_PROFILED):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch(rng.integers(0, 64, b), s).items()}
+        batch["loss_weights"] = torch.full((b,), 1 / b, device=dev)
+        batches.append(batch)
+    state = [whole["params"], whole["opt_state"]]
+    del whole
+
+    def steps_fn(_):
+        for batch in batches:
+            state[0], state[1], _m = step(state[0], state[1], batch)
+    steps_fn(0)            # the allocator settles before the timed call
+    kern = profile_run(torch, f"mamba2-780m train step (B={b} S={s}) {tag}",
+                       steps_fn, MAMBA2_PROFILED, "step", ("ssd_scan", "ssd_bwd"))
+    print(f"  kernel 5 a step: forward {kern['ssd_scan']:.3f} ms "
+          f"({2 * cfg.n_layers} wrapper calls), backward {kern['ssd_bwd']:.3f} "
+          f"ms ({cfg.n_layers} calls) of device time, {med * 1e3:.3f} ms a "
+          f"step {tag}")
+    return launches
+
+
+def train_mamba2_resume(torch, dev, layers: int) -> None:
+    """(d3) The driver's resume, at mamba2-780m's full width cut to
+    ``layers`` layers (``run(cfg=)``) and MAMBA2_TRAIN's batch and rounds,
+    under deterministic algorithms: checkpointed at MAMBA2_TRAIN_CKPT,
+    then resumed from it in a second run; the continued history,
+    parameters and moments equal the uninterrupted run's bit for bit,
+    with at least one step trained after the checkpoint and kernel 5
+    launched as ``mixer_launches`` says."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_arch("mamba2-780m"), n_layers=layers)
+    args = MAMBA2_TRAIN + ["--ckpt-every", str(MAMBA2_TRAIN_CKPT)]
+    with tempfile.TemporaryDirectory() as whole_dir, \
+            tempfile.TemporaryDirectory() as part_dir, deterministic(torch):
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        whole = train.run(train.parse_args(args + ["--ckpt-dir", whole_dir]),
+                          cfg=cfg)
+        torch.cuda.synchronize()
+        t_whole = time.perf_counter() - t0
+        launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+        n_steps = len(whole["step_s"])
+        fwd, bwd = mixer_launches(cfg, n_steps)
+        check(launches == {"ssd_scan": fwd, "ssd_scan_bwd": bwd},
+              f"the {layers}-layer mamba2 driver launched {launches}, not "
+              f"{fwd} forward and {bwd} backward over {n_steps} steps")
+        for path in Path(whole_dir).glob("ckpt_*"):
+            if path.name.startswith(f"ckpt_{MAMBA2_TRAIN_CKPT:08d}."):
+                path.rename(Path(part_dir) / path.name)
+        t0 = time.perf_counter()
+        resumed = train.run(train.parse_args(args + ["--ckpt-dir", part_dir,
+                                                     "--resume"]), cfg=cfg)
+        t_resumed = time.perf_counter() - t0
+    tail = [h for h in whole["history"] if h["step"] > MAMBA2_TRAIN_CKPT]
+    check(bool(tail), f"the {layers}-layer run trained no step after round "
+          f"{MAMBA2_TRAIN_CKPT}")
+    check(resumed["history"] == tail,
+          f"the resumed run's history differs: {resumed['history'][:2]} / {tail[:2]}")
+    same = all(torch.equal(u, v) for u, v in zip(
+        tree_leaves((resumed["params"], resumed["opt_state"])),
+        tree_leaves((whole["params"], whole["opt_state"]))))
+    check(same, "the resumed run's parameters or moments differ")
+    n = sum(x.numel() for x in tree_leaves(whole["params"]))
+    rounds = int(args[args.index("--steps") + 1])
+    print(f"  (d3) the driver's resume at mamba2-780m's full width, {layers} of "
+          f"its 48 layers ({n:,} parameters), B=4 S=2048: {rounds} rounds, "
+          f"{n_steps} trained, in {t_whole:.1f} s (checkpoints included); "
+          f"resumed at round {MAMBA2_TRAIN_CKPT}: {len(resumed['step_s'])} "
+          f"steps in {t_resumed:.1f} s, the continued history, parameters and "
+          f"moments equal bit for bit; launches {launches}")
+
+
+def run_training(torch, dev, card_line: str) -> dict:
     """Phase [11]: the training slice (``launch.train``, ``make_train_step``)
-    on the card.  No TPU kernel lies on its path."""
+    on the card: demo-100m and gemma3-1b run no kernel; mamba2 and zamba2
+    run kernel 5 and its backward.  Returns (d3)'s launch counts and (d1)'s
+    largest error."""
+    from repro_torch.configs import get_arch
     tag = f"[{card_line}]"
     t_phase = time.perf_counter()
-    train_guard(torch, dev)
+    train_swa_guard(torch, dev)
     train_card_against_cpu(torch, dev, tag)
     train_driver(torch, dev, tag)
     train_gemma3(torch, dev, tag)
-    print(f"  phase [11] {time.perf_counter() - t_phase:.1f} s")
+    t_mamba = parts = time.perf_counter()
+    spent = []
+
+    def lap(name: str) -> None:
+        nonlocal parts
+        now = time.perf_counter()
+        spent.append(f"{name} {now - parts:.1f} s")
+        parts = now
+    err = train_ssd_bwd(torch, dev)
+    lap("(d1)")
+    layers, b, s, steps = MAMBA2_CARD_CPU
+    train_against_cpu(torch, dev, dataclasses.replace(get_arch("mamba2-780m"),
+                                                      n_layers=layers),
+                      (b, s, steps), f"(d2) mamba2-780m full width, {layers} of "
+                      f"its 48 layers", tag)
+    lap("(d2)")
+    launches = train_mamba2(torch, dev, tag)
+    lap("(d3)")
+    train_mamba2_resume(torch, dev, layers)
+    lap("(d3) resume")
+    layers, b, s, steps = ZAMBA2_TRAIN
+    train_against_cpu(torch, dev, get_arch("zamba2-7b").reduced(n_layers=layers),
+                      (b, s, steps), f"(d4) zamba2-7b reduced(n_layers={layers})",
+                      tag)
+    lap("(d4)")
+    print(f"  phase [11] {time.perf_counter() - t_phase:.1f} s, of it (d) mamba2 "
+          f"and zamba2 {time.perf_counter() - t_mamba:.1f} s: {', '.join(spent)}")
+    return dict(launches=launches, err=err)
 
 
 def run_analysis(torch, dev, card_line: str) -> None:
@@ -3361,6 +3876,7 @@ def main() -> int:
             print("  " + (re.sub(r"ILi(\d+)ELi(\d+)E", r"<\1, \2>", name.group(0))
                           if name else line.strip()))
     dynamic_smem(cuda_lib.CSRC / "ssd_scan.cu")
+    dynamic_smem(cuda_lib.CSRC / "ssd_scan_bwd.cu")
     sass = solve_sass(torch, lib)
 
     print("[2] kernels against their plain versions" + at(), flush=True)
@@ -3377,6 +3893,7 @@ def main() -> int:
     rec["swa_decode"] = time_decode(torch, dev)
     time_softcap_decode(torch, dev)
     rec["ssd_scan"], ssd_ms = time_ssd(torch, dev)
+    rec["ssd_scan_bwd"] = time_ssd_bwd(torch, dev)
     time_round_parts(torch, dev)
     profile_sweep(torch, dev, "grid", grid_plans(dev, 5), "masked_aggregate")
     plans, _, cfgs, trains, tests, _ = quantized_plans(torch, dev, 5, 5)
@@ -3435,9 +3952,12 @@ def main() -> int:
     print("[10] the drift-aware closed loop" + at(), flush=True)
     run_closed_loop(torch, dev, card_line)
 
-    print("[11] training: demo-100m and gemma3-1b at full width" + at(),
-          flush=True)
-    run_training(torch, dev, card_line)
+    print("[11] training: demo-100m, gemma3-1b and mamba2-780m at full width, "
+          "zamba2-7b reduced" + at(), flush=True)
+    trained = run_training(torch, dev, card_line)
+    out["launches"]["ssd_scan"] += trained["launches"]["ssd_scan"]
+    out["launches"]["ssd_scan_bwd"] = trained["launches"]["ssd_scan_bwd"]
+    errs["ssd_scan_bwd"] = trained["err"]
 
     print("[12] the analysis gate: rank contract, hot-path budgets" + at(),
           flush=True)
@@ -3462,7 +3982,9 @@ def main() -> int:
                "swa_decode": ("src/repro_torch/csrc/swa_decode.cu",
                               "src/repro/kernels/swa_decode/kernel.py:75"),
                "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
-                            "src/repro/kernels/ssd_scan/kernel.py:82")}
+                            "src/repro/kernels/ssd_scan/kernel.py:82"),
+               "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu",
+                                "src/repro/models/mamba2.py:83")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=out["launches"][name], max_abs_err=errs[name],
                     **rec[name])

@@ -10,10 +10,12 @@ the module is imported.
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers in
 ``kernels/*/ops.py`` made; each wrapper adds one where it launches and
-nowhere else.  ``BUILDS`` counts the builds that ran ``nvcc`` (not those
-that found the hashed library on disk) and ``LOADS`` the ``ctypes.CDLL``
-loads of the library: a steady call makes neither
-(``repro_torch.analysis.recompile.BuildBudget``).
+nowhere else.  Kernel 5's backward is a kernel of its own
+(``ssd_scan_bwd``, ``csrc/ssd_scan_bwd.cu``); kernel 6 has none, and its
+wrapper refuses autograd (``refuse_autograd``).  ``BUILDS`` counts the
+builds that ran ``nvcc`` (not those that found the hashed library on
+disk) and ``LOADS`` the ``ctypes.CDLL`` loads of the library: a steady
+call makes neither (``repro_torch.analysis.recompile.BuildBudget``).
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
 
 LAUNCHES = {"fused_solve": 0, "selection_solve": 0, "masked_aggregate": 0,
             "row_scale": 0, "quantized_masked_aggregate": 0, "swa_decode": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
 BUILDS = 0
 LOADS = 0
 
@@ -50,6 +52,7 @@ _SIGNATURES = {
     "repro_quantized_masked_aggregate": [_P] * 6 + [_I, _I, _LL, _P],
     "repro_swa_decode": [_P] * 7 + [_I] * 6 + [_LL, _LL, _F, _P],
     "repro_ssd_scan": [_P] * 12 + [_I] * 6 + [_P],
+    "repro_ssd_scan_bwd": [_P] * 21 + [_I] * 6 + [_P],
 }
 
 _library: Optional[ctypes.CDLL] = None
@@ -161,18 +164,15 @@ def check_operands(*tensors: torch.Tensor, shape=None) -> None:
             raise ValueError(f"operand shape {tuple(x.shape)} != {tuple(shape)}")
 
 
-# the slice that brings each kernel's backward
-BACKWARD_SLICE = {"ssd_scan": "the mamba2-training slice (a backward for "
-                              "kernel 5)",
-                  "swa_decode": "a slice that trains through decode "
+# the slice that brings the backward of each kernel that has none
+BACKWARD_SLICE = {"swa_decode": "a slice that trains through decode "
                                 "attention (a backward for kernel 6)"}
 
 
 def refuse_autograd(kernel: str, *tensors) -> None:
     """Raise where autograd records and an operand requires its gradient:
-    the kernels have no backward, so their outputs would carry no
-    ``grad_fn`` and every gradient before them would be dropped without
-    a word."""
+    a kernel without a backward would give outputs with no ``grad_fn``,
+    and every gradient before it would be dropped without a word."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(

@@ -76,14 +76,16 @@ def main(argv=None, draws=None, params=None) -> list:
     return run(parse_args(argv), draws, params)["history"]
 
 
-def run(args: argparse.Namespace, draws=None, params=None) -> dict:
+def run(args: argparse.Namespace, draws=None, params=None, cfg=None) -> dict:
     """The launcher's loop: {"history", "params", "opt_state", "step_s"}
     (``step_s``: the wall seconds of each trained round, its host reads
-    included)."""
+    included).  ``cfg``, when given, is the model's configuration in
+    place of ``--arch``'s and ``--reduced``'s (a depth cut, say)."""
     dev = resolve_device(args.device)
-    cfg = get_arch(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = get_arch(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     print(f"arch {cfg.name}: {cfg.n_layers}L d={cfg.d_model} "
           f"vocab={cfg.vocab}")
 

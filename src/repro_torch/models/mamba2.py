@@ -4,8 +4,10 @@ as ``repro.models.mamba2``.
 The sequence is split into chunks of length ``cs``; within a chunk the dual
 quadratic ("attention-like") form, across chunks a sequential recurrence
 over the [H, P, N] SSM state.  ``ssd_chunked`` goes through
-``kernels.ssd_scan.ops.ssd_apply``: the hand-written kernel on the card,
-the plain chunked dual form (``kernels/ssd_scan/ref.py``) on the CPU.
+``kernels.ssd_scan.ops.ssd_apply``, one autograd node (``SSDScanFn``): the
+hand-written kernels on the card, forward and backward, and the plain
+chunked dual form and its plain backward passes (``kernels/ssd_scan/ref.py``)
+on the CPU, so mamba2 trains on both.
 
 Decode is the O(1) recurrent step: state <- exp(dt A) state + dt B x.
 """
@@ -95,8 +97,9 @@ def ssd_inputs(params: Params, x: torch.Tensor, cfg: SSMConfig):
     a = -torch.exp(params["A_log"])
     bsz, s = x.shape[:2]
     xs = xs.reshape(bsz, s, n_heads, cfg.head_dim)
-    # a and D enter the scan promoted to the activations' dtype, as the
-    # reference's products with them promote (bfloat16 under cast_bf16)
+    # a and D enter the scan in the activations' dtype, float32 also under
+    # cast_bf16 (the residual stream is promoted to float32, as the
+    # reference's is): there only their values are bfloat16-rounded
     return z, (xs, dt, a.to(xs.dtype), b_mat, c_mat, params["D"].to(xs.dtype))
 
 

@@ -768,6 +768,73 @@ def test_ssd_scan_wrapper_checks_operands(dev):
         ssd_ops.ssd_apply(*_ssd_case(dev, 1, 32, 1, 8, 129, 0)[:6], chunk=32)
 
 
+def test_ssd_scan_forward_is_unchanged(dev):
+    """Kernel 5's forward gives, bit for bit, the outputs it gave before
+    its backward came (``chip_smoke.SSD_DIGESTS``)."""
+    assert chip_smoke.ssd_digests(torch, dev) == list(chip_smoke.SSD_DIGESTS)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,init,cot", [
+    (2, 128, 16, 32, 16, 32, True, True),     # the reduced mamba2
+    (2, 512, 3, 64, 128, 256, True, True),    # mamba2-780m's widths
+    (1, 192, 3, 48, 100, 96, False, True),    # ragged: tiles padded in P, N and cs
+    (3, 40, 5, 7, 5, 8, True, False),
+    (1, 130, 2, 33, 1, 65, False, False),
+])
+def test_ssd_scan_backward_matches_plain_backward(dev, b, s, h, p, n, chunk, init,
+                                                  cot):
+    """The backward kernel against the plain backward passes on the same
+    forward scratch, each gradient within SSD_BWD_TOL of its max-norm; a
+    second call the same bits; one launch counted a call."""
+    ops_, s0 = chip_smoke.ssd_operands(torch, dev, b, s, h, p, n, s + p + n, init)
+    before = cuda_lib.LAUNCHES["ssd_scan_bwd"]
+    got, want = chip_smoke.ssd_backward_pair(torch, ops_, s0, chunk, 3, cot)
+    again, _ = chip_smoke.ssd_backward_pair(torch, ops_, s0, chunk, 3, cot)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["ssd_scan_bwd"] == before + 2
+    for name, u, v, w in zip(chip_smoke.SSD_GRADS, got, want, again):
+        assert chip_smoke.grad_err(u, v) <= chip_smoke.SSD_BWD_TOL, name
+        assert torch.equal(u, w), name
+
+
+def test_ssd_scan_backward_under_stress_decays(dev):
+    """dt x 300 and A x 4 at mamba2's widths: finite gradients, a's within
+    SSD_BWD_STRESS_DA_TOL (chip_smoke.py says why), the others within
+    SSD_BWD_TOL."""
+    (x, dt, a, bm, cm, d), _ = chip_smoke.ssd_operands(torch, dev, 1, 512, 4, 64,
+                                                       128, 9)
+    got, want = chip_smoke.ssd_backward_pair(
+        torch, (x, dt * 300.0, a * 4.0, bm, cm, d), None, 256, 4)
+    for name, u, v in zip(chip_smoke.SSD_GRADS, got, want):
+        assert bool(torch.isfinite(u).all()), name
+        tol = (chip_smoke.SSD_BWD_STRESS_DA_TOL if name == "da"
+               else chip_smoke.SSD_BWD_TOL)
+        assert chip_smoke.grad_err(u, v) <= tol, name
+
+
+def test_ssd_apply_trains_through_the_kernels_on_the_card(dev):
+    """Autograd through ``ssd_apply`` on the card: the output's node is
+    ``SSDScanFnBackward``, the forward and backward kernels launch once
+    each, and the gradients are the backward kernel's on the forward's
+    own scratch."""
+    ops_, s0 = chip_smoke.ssd_operands(torch, dev, 2, 128, 4, 32, 16, 5, init=True)
+    leaves = [t.clone().requires_grad_(True) for t in (*ops_, s0)]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    dy = torch.randn((2, 128, 4, 32), device=dev, generator=gen)
+    d_final = torch.randn((2, 4, 32, 16), device=dev, generator=gen)
+    cuda_lib.reset_launch_counts()
+    y, state = ssd_ops.ssd_apply(*leaves[:6], chunk=32, init_state=leaves[6],
+                                 return_state=True)
+    assert y.grad_fn.name() == "SSDScanFnBackward"
+    got = torch.autograd.grad((y, state), leaves, (dy, d_final))
+    assert cuda_lib.LAUNCHES["ssd_scan"] == cuda_lib.LAUNCHES["ssd_scan_bwd"] == 1
+    with torch.no_grad():
+        _, _, cum, states, scores = ssd_ops._forward_card(*ops_, 32, s0)
+        want = ssd_ops._backward_card(dy, d_final, *ops_, 32, cum, states, scores)
+    for name, u, v in zip(chip_smoke.SSD_GRADS, got, want):
+        assert torch.equal(u, v), name
+
+
 def test_mamba_prefill_on_the_card_launches_the_kernel(dev):
     """A reduced mamba2 (4 stacked layers, 16 heads of 32, chunk 32): the
     prefill on the card launches the kernel once per layer and agrees with
@@ -999,21 +1066,12 @@ def test_quantized_kernel_on_drop_zeroed_coefficients(dev, monkeypatch):
 
 
 # ------------------------------------------------------- training on the card
-# The kernels have no backward: under autograd their wrappers raise rather
-# than return an output without ``grad_fn`` (which would drop every
-# gradient before them).  The dense training path runs no kernel and is
-# held against the port's own CPU step at the CPU tests' tolerances
-# (``tests/test_torch_train.py``): loss 1e-5, grad_norm 1e-4, parameters
-# within lr and all but 1e-3 of them within 1e-5.
-
-def test_ssd_scan_refuses_autograd_on_the_card(dev):
-    ops, _ = chip_smoke.ssd_operands(torch, dev, 1, 64, 2, 32, 16, seed=0)
-    x = ops[0].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="kernel 5"):
-        ssd_ops.ssd_apply(x, *ops[1:], chunk=32)
-    with torch.no_grad():
-        ssd_ops.ssd_apply(x, *ops[1:], chunk=32)
-
+# Kernel 5 trains through its hand-written backward (``SSDScanFn``); kernel
+# 6 has none, and under autograd its wrapper raises rather than return an
+# output without ``grad_fn`` (which would drop every gradient before it).
+# The training paths are held against the port's own CPU step at the CPU
+# tests' tolerances (``tests/test_torch_train.py``): loss 1e-5, grad_norm
+# 1e-4, parameters within lr a step and all but 1e-3 of them within 1e-5.
 
 def test_swa_decode_refuses_autograd_on_the_card(dev):
     q, k, v = chip_smoke.decode_operands(torch, dev, 2, 64, 1, 4, 64, seed=0)
@@ -1025,16 +1083,16 @@ def test_swa_decode_refuses_autograd_on_the_card(dev):
     swa_ops.swa_decode(q, k, v, pos, qpos, window=None)
 
 
-def test_mamba2_train_step_raises_on_the_card(dev):
-    from repro_torch.launch.steps import make_train_step
-    cfg = ARCHS["mamba2-780m"].reduced()
-    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                           device=dev)
-    step, opt = make_train_step(cfg, q_chunk=128)
-    tokens = torch.randint(0, cfg.vocab, (2, 64), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(1))
-    with pytest.raises(NotImplementedError, match="kernel 5"):
-        step(params, opt.init(params), {"tokens": tokens, "labels": tokens})
+@pytest.mark.parametrize("arch,n_layers", [("mamba2-780m", 2), ("zamba2-7b", 13)])
+def test_ssm_train_step_on_the_card_matches_the_cpu(dev, arch, n_layers):
+    """A reduced mamba2 and zamba2 (two stacked units of five Mamba2
+    mixers and the shared block, and a tail), two steps: every mixer
+    launches kernel 5's backward once a step, and its forward once, or
+    twice in a stacked unit under remat "full" (``mixer_launches``)."""
+    cfg = ARCHS[arch].reduced(n_layers=n_layers)
+    launches = chip_smoke.train_against_cpu(torch, dev, cfg, (2, 64, 2), arch, "")
+    assert launches == dict(zip(("ssd_scan", "ssd_scan_bwd"),
+                                chip_smoke.mixer_launches(cfg, 2)))
 
 
 def test_dense_train_step_on_the_card_matches_the_cpu(dev):

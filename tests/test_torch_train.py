@@ -63,7 +63,7 @@ from repro_torch.checkpoint.checkpoint import _leaves_with_path
 from repro_torch.configs import EXTRA_ARCHS, NOT_PORTED, get_arch
 from repro_torch.convert import adam_state_from_numpy, params_from_numpy
 from repro_torch.data.lm import SyntheticLMData
-from repro_torch.kernels.cuda_lib import refuse_autograd
+from repro_torch.kernels.cuda_lib import BACKWARD_SLICE, refuse_autograd
 from repro_torch.launch import train
 from repro_torch.launch.steps import cast_bf16, make_train_step, value_and_grad
 from repro_torch.models import transformer as T
@@ -338,17 +338,17 @@ def test_train_step_from_reference_state_after_k_steps():
 
 
 def test_refuse_autograd_guard():
-    """The kernels' wrappers call this on the card: it raises where
-    autograd records through an operand, and nowhere else."""
+    """Kernel 6's wrapper, the one kernel without a backward, calls this
+    on the card: it raises where autograd records through an operand, and
+    nowhere else.  Kernel 5 has its backward and no guard."""
     x = torch.ones(3, requires_grad=True)
     y = torch.ones(3)
-    with pytest.raises(NotImplementedError, match="kernel 5"):
-        refuse_autograd("ssd_scan", y, x, None)
     with pytest.raises(NotImplementedError, match="kernel 6"):
-        refuse_autograd("swa_decode", x)
-    refuse_autograd("ssd_scan", y, None)
+        refuse_autograd("swa_decode", y, x, None)
+    refuse_autograd("swa_decode", y, None)
     with torch.no_grad():
-        refuse_autograd("ssd_scan", x)
+        refuse_autograd("swa_decode", x)
+    assert set(BACKWARD_SLICE) == {"swa_decode"}
 
 
 # ------------------------------------------------------------------ driver
@@ -463,6 +463,32 @@ def test_resume_continues_the_uninterrupted_run_bit_for_bit(tmp_path):
                                                  "--resume"]))
     assert resumed["history"] == whole["history"][4:]
     assert len(resumed["step_s"]) == 4
+    for got, want in ((resumed["params"], whole["params"]),
+                      (resumed["opt_state"], whole["opt_state"])):
+        for g, w in zip(tree_leaves(got), tree_leaves(want)):
+            assert torch.equal(g, w)
+
+
+def test_resume_of_a_given_config_continues_bit_for_bit(tmp_path, capsys):
+    """``run(cfg=)`` trains the configuration handed in, here mamba2
+    reduced and cut to one layer, so every step goes through the SSD
+    scan's Function: 4 rounds, then --resume to 8, equals 8 in one run:
+    history, parameters and moments bit for bit."""
+    cfg = dataclasses.replace(get_arch("mamba2-780m").reduced(), n_layers=1)
+    base = ["--arch", "mamba2-780m", "--steps", "8", "--batch", "2", "--seq",
+            "64", "--n-clients", "8", "--log-every", "1", "--device", "cpu"]
+    whole = train.run(train.parse_args(base), cfg=cfg)
+    assert "arch mamba2-780m-reduced: 1L d=256 vocab=512" in capsys.readouterr().out
+    assert [tuple(t.shape) for t in tree_leaves(whole["params"])] == [
+        tuple(t.shape) for t in tree_leaves(
+            T.init_params(cfg, torch.Generator(), device="cpu"))]
+    part = base[:]
+    part[part.index("--steps") + 1] = "4"
+    train.run(train.parse_args(part + ["--ckpt-dir", str(tmp_path)]), cfg=cfg)
+    resumed = train.run(train.parse_args(base + ["--ckpt-dir", str(tmp_path),
+                                                 "--resume"]), cfg=cfg)
+    tail = [h for h in whole["history"] if h["step"] > 4]
+    assert tail and resumed["history"] == tail
     for got, want in ((resumed["params"], whole["params"]),
                       (resumed["opt_state"], whole["opt_state"])):
         for g, w in zip(tree_leaves(got), tree_leaves(want)):
