@@ -15,8 +15,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    slices' shapes and at ragged ones, within the stated tolerance (the
    solve kernels bit for bit, also on adversarial elements and a padded
    mixed batch; the decode attention also with gemma2's softcap at its
-   heads, and without one bit for bit the outputs recorded before it
-   took one; the SSD scan's forward bit for bit the outputs recorded
+   heads and at llama4-scout's odd group (G = 5), and without a softcap
+   bit for bit the outputs recorded before it took one; the SSD scan's forward bit for bit the outputs recorded
    before its backward came);
 3. time each kernel with CUDA events (the solve kernels as device time
    with their launches queued behind a spin kernel, beside the bound on
@@ -25,7 +25,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    scan's passes by the profiler's device time; the quantised sum's two
    kernels as device time with their launches queued behind a spin
    kernel; the decode attention with gemma2's softcap beside the same
-   launches without it; the SSD scan's backward, its six passes apart,
+   launches without it, and at llama4-scout's heads; the SSD scan's backward, its six passes apart,
    as device time queued behind a spin kernel at the training batch and
    at 32,768 tokens) beside its bound, its
    plain version and (for the plain aggregate, the quantised sum's scale
@@ -147,7 +147,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``BatchedServer(batch=4)`` on 8 requests x 24 new tokens with kernel 6
    launched exactly steps x attention layers (24, 40, 24, 13) times, a
    profiled decode step and the peak device memory; zamba2 also prefills
-   at B = 1, S = 4,096 with exactly 81 ``ssd_scan`` launches;
+   at B = 1, S = 4,096 with exactly 81 ``ssd_scan`` launches; then the
+   two MoE archs: deepseek-v2-lite-16b at full width and depth
+   (15,496,769,024 parameters, 2,451,435,008 active; MLA, which launches
+   no kernel, and 64 experts top-6) and llama4-scout-17b-a16e cut to one
+   4-layer period of its 48 (9,843,880,960; 16 experts top-1; kernel 6 at
+   G = 5 on its four attention layers), each with its active-parameter
+   count, a prefill at B = 1, S = 4,096, the self-check at capacity factor
+   E / k (no token dropped, so forward routes as decode does) compared up
+   to each row's first route flip, every flip's margin under 1e-5 and at
+   least three quarters of the positions compared, the dropped share of
+   a forward at the arch's own capacity factor 1.25, the served decode
+   step beside the bound of reading its weights;
 14. print the kernel record, the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -251,6 +262,11 @@ GEMMA3_HEADS = (1, 4, 256)
 GEMMA2_HEADS = (16, 2, 128)
 GEMMA2_WINDOW = 4096
 GEMMA2_SOFTCAP = 50.0
+# llama4-scout's: 8 KV heads for G = 5 query heads each (an odd group, which
+# the kernel's MAXG = 8 instance runs), dh 128, window 8,192 on the local
+# layers
+LLAMA4_HEADS = (8, 5, 128)
+LLAMA4_WINDOW = 8192
 # kernel 6 without a softcap, bit for bit as it was before it took one:
 # (B, W, Hkv, G, dh, window, qpos, nsplit) of numpy-made operands
 # (``decode_digests``), and the first 16 hex digits of the SHA-256 of the
@@ -273,13 +289,21 @@ MAMBA2_SELF_CHECK = (2, 512)        # teacher-forced decode: 2 chunks
 # the backward's shapes (B, S): the training run's batch, and prefill_32k's
 # length
 MAMBA2_BWD = ((4, 2048), (1, 32768))
-# phase [13]: the remaining attention archs at full width, one after the
-# other; gemma2-27b cut to 24 of its 46 layers (12 local/global pairs),
-# since its 108.9 GB of float32 weights do not fit the card's 80 GB
+# phase [13]: the remaining archs at full width, one after the other;
+# gemma2-27b cut to 24 of its 46 layers (12 local/global pairs), since its
+# 108.9 GB of float32 weights do not fit the card's 80 GB, and
+# llama4-scout-17b-a16e to one 4-layer period of its 48 (426.9 GB whole;
+# 8 layers would take 74.6 GB)
 ARCH_RUNS = (("h2o-danube-3-4b", None), ("phi3-medium-14b", None),
-             ("gemma2-27b", 24), ("zamba2-7b", None))
+             ("gemma2-27b", 24), ("zamba2-7b", None),
+             ("deepseek-v2-lite-16b", None), ("llama4-scout-17b-a16e", 4))
 ARCH_SELF_CHECK = (2, 512)   # teacher-forced decode (B, S): 2 of zamba2's chunks
-ZAMBA2_PREFILL = (1, 4096)
+ARCH_PREFILL = (1, 4096)     # zamba2's and the MoE archs' timed prefill
+# the MoE self-check: a route flip between forward and decode (the k-th and
+# (k+1)-th router probabilities of a token within rounding) must have a
+# margin under this, and at least this share of positions be compared
+FLIP_MARGIN = 1e-5
+COMPARED_SHARE = 0.75
 # decode timings at gemma3's heads beyond the serving step: (B, W, window,
 # distinct caches, repetitions); the serving runs' caches (W 88 at gen 24,
 # 512 and 664 at gen 600) and a long cache at a larger batch
@@ -1970,6 +1994,7 @@ def check_decode(torch, dev) -> float:
               f"{ops.split_count(b, w, sm_count(torch))}): 3 launches, the "
               f"same bits")
     worst = max(worst, check_softcap_decode(torch, dev))
+    worst = max(worst, check_llama4_decode(torch, dev))
     got = decode_digests(torch, dev)
     print(f"  swa_decode without a softcap on {len(got)} numpy-made cases: "
           f"output digests {got}")
@@ -1979,6 +2004,78 @@ def check_decode(torch, dev) -> float:
     print("  swa_decode without a softcap: every output bit for bit the "
           "recorded one")
     return worst
+
+
+def check_llama4_decode(torch, dev) -> float:
+    """Kernel 6 at llama4-scout's heads (Hkv 8, G 5, dh 128: the odd group
+    that the MAXG = 8 instance runs with three dead lanes) against its
+    plain version: the serving run's cache of 88 slots, filling and
+    wrapped, and a local ring of 8,192 slots (B = 4) full and wrapped,
+    each under the 8,192 window and without one, through the wrapper and
+    at forced split counts."""
+    worst = 0.0
+    for i, (b, w, qpos, splits) in enumerate((
+            (4, 88, 60, (1, 3)), (4, 88, 150, (1, 3)),
+            (4, LLAMA4_WINDOW, 2 * LLAMA4_WINDOW - 1, (1, 7, 64)),
+            (4, LLAMA4_WINDOW, 9000, (1, 7, 64)))):
+        q, k, v = decode_operands(torch, dev, b, w, *LLAMA4_HEADS, 90 + i)
+        pos = ring_positions(torch, w, qpos, dev)
+        for window in (LLAMA4_WINDOW, None):
+            worst = max(worst, hold_decode_splits(
+                torch, q, k, v, pos, qpos, window, splits, None,
+                f"B={b} W={w:>4} Hkv={LLAMA4_HEADS[0]} G={LLAMA4_HEADS[1]} "
+                f"dh={LLAMA4_HEADS[2]} window={window} qpos={qpos}"))
+        del q, k, v
+    return worst
+
+
+def time_llama4_decode(torch, dev) -> list:
+    """Device time of kernel 6 at llama4-scout's heads on full rings, its
+    launches queued behind a spin kernel (``queued_ms``: the profiler
+    left a few of the long ring's launches unrecorded), beside the
+    profiler's device time of its plain version and of one library call
+    (scaled_dot_product_attention with the boolean mask and enable_gqa),
+    whose many launches the host queues slower than they run, and the
+    bound: the serving run's cache of
+    88 slots and the local window's 8,192 (B = 4), each over enough
+    distinct caches that every launch reads its K and V from device
+    memory.  Returns one record a shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.swa_decode import ops, ref
+    hkv, g, dh = LLAMA4_HEADS
+    out = []
+    for b, w, copies, reps in ((4, 88, 96, 10), (4, LLAMA4_WINDOW, 2, 20)):
+        qpos = 2 * w - 1
+        pos = ring_positions(torch, w, qpos, dev)
+        ops_ = [decode_operands(torch, dev, b, w, *LLAMA4_HEADS, 400 + i)
+                for i in range(copies)]
+        mask = ((pos >= 0) & (pos <= qpos) & (pos > qpos - LLAMA4_WINDOW))[None, None, None, :]
+
+        def calls(fn):
+            return lambda: [fn(q, k, v) for q, k, v in ops_]
+        kern = calls(lambda q, k, v: ops.swa_decode(q, k, v, pos, qpos,
+                                                    window=LLAMA4_WINDOW))
+        plain = calls(lambda q, k, v: ref.swa_decode_ref(q, k, v, pos, qpos,
+                                                         window=LLAMA4_WINDOW))
+        lib = calls(lambda q, k, v: F.scaled_dot_product_attention(
+            q.reshape(b, hkv * g, 1, dh), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, scale=1.0, enable_gqa=True))
+        lib_err = float((lib()[0].reshape(ops_[0][0].shape) - plain()[0]).abs().max())
+        k_ms = queued_ms(torch, kern, reps) / copies
+        p_ms = device_ms(torch, plain, max(reps // 10, 2))[0] / copies
+        l_ms = device_ms(torch, lib, reps)[0] / copies
+        b_ms, by = decode_bound(b, w, hkv, g, dh)
+        print(f"  swa_decode llama4-scout's heads B={b} W={w:>4} window "
+              f"{LLAMA4_WINDOW} Hkv={hkv} G={g} dh={dh} (nsplit "
+              f"{ops.split_count(b * hkv, w, sm_count(torch))}), device time: "
+              f"kernel {k_ms:.6f} ms, plain {p_ms:.6f} ms, SDPA {l_ms:.6f} ms "
+              f"(max|SDPA - plain| {lib_err:.2e}), bound {b_ms:.6f} ms ({by}); "
+              f"kernel at {b_ms / k_ms:.3f} of its bound")
+        out.append(dict(shape=f"B={b} W={w} Hkv={hkv} G={g} dh={dh}", ms=k_ms,
+                        plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                        library_ms=l_ms))
+        del ops_
+    return out
 
 
 def decode_digests(torch, dev) -> list:
@@ -2000,6 +2097,30 @@ def decode_digests(torch, dev) -> list:
     return out
 
 
+def hold_decode_splits(torch, q, k, v, pos, qpos, window, splits, softcap,
+                       label: str) -> float:
+    """Kernel 6 through its wrapper and at each of ``splits`` (forced split
+    counts) against its plain version at ``DECODE_TOL``: one line printed,
+    the largest error returned."""
+    from repro_torch.kernels.swa_decode import ops, ref
+    plain = ref.swa_decode_ref(q, k, v, pos, qpos, window=window, softcap=softcap)
+    runs = [("wrapper", ops.swa_decode(q, k, v, pos, qpos, window=window,
+                                       softcap=softcap))]
+    runs += [(f"nsplit={n}", ops._launch(q, k, v, pos, qpos, window, n, softcap))
+             for n in splits]
+    torch.cuda.synchronize()
+    errs, worst = [], 0.0
+    for name, out in runs:
+        err = float((out - plain).abs().max())
+        check(bool(torch.isfinite(out).all()) and bool(torch.allclose(
+            out, plain, rtol=DECODE_TOL, atol=DECODE_TOL)),
+            f"swa_decode {label} {name}: error {err} beyond {DECODE_TOL}")
+        errs.append(f"{name} {err:.2e}")
+        worst = max(worst, err)
+    print(f"  swa_decode {label}: max|kernel - plain| " + ", ".join(errs))
+    return worst
+
+
 def check_softcap_decode(torch, dev) -> float:
     """Kernel 6 with gemma2's softcap (50) at gemma2's heads against its
     plain version: a ragged local ring of 4,100 slots wrapped under the
@@ -2007,7 +2128,6 @@ def check_softcap_decode(torch, dev) -> float:
     filling ring, each through the wrapper and at forced split counts;
     the queries as drawn (scores of spread about 1, where the cap barely
     bends them) and scaled by 30 (spread about 30, bent hard)."""
-    from repro_torch.kernels.swa_decode import ops, ref
     worst = 0.0
     for i, (b, w, window, qpos, splits) in enumerate((
             (4, 4100, GEMMA2_WINDOW, 9000, (1, 7, 64)),
@@ -2017,27 +2137,11 @@ def check_softcap_decode(torch, dev) -> float:
         q, k, v = decode_operands(torch, dev, b, w, *GEMMA2_HEADS, 80 + i)
         pos = ring_positions(torch, w, qpos, dev)
         for hot in (1.0, 30.0):
-            qh = q * hot
-            plain = ref.swa_decode_ref(qh, k, v, pos, qpos, window=window,
-                                       softcap=GEMMA2_SOFTCAP)
-            runs = [("wrapper", ops.swa_decode(qh, k, v, pos, qpos, window=window,
-                                               softcap=GEMMA2_SOFTCAP))]
-            runs += [(f"nsplit={n}", ops._launch(qh, k, v, pos, qpos, window, n,
-                                                 GEMMA2_SOFTCAP)) for n in splits]
-            torch.cuda.synchronize()
-            errs = []
-            for label, out in runs:
-                err = float((out - plain).abs().max())
-                check(bool(torch.isfinite(out).all()) and bool(torch.allclose(
-                    out, plain, rtol=DECODE_TOL, atol=DECODE_TOL)),
-                    f"swa_decode softcap W={w} window={window} {label} x{hot:g}: "
-                    f"error {err} beyond {DECODE_TOL}")
-                errs.append(f"{label} {err:.2e}")
-                worst = max(worst, err)
-            print(f"  swa_decode softcap {GEMMA2_SOFTCAP:g} B={b} W={w:>4} "
-                  f"Hkv={GEMMA2_HEADS[0]} G={GEMMA2_HEADS[1]} dh={GEMMA2_HEADS[2]} "
-                  f"window={window} qpos={qpos} q x{hot:g}: max|kernel - plain| "
-                  + ", ".join(errs))
+            worst = max(worst, hold_decode_splits(
+                torch, q * hot, k, v, pos, qpos, window, splits, GEMMA2_SOFTCAP,
+                f"softcap {GEMMA2_SOFTCAP:g} B={b} W={w:>4} Hkv={GEMMA2_HEADS[0]} "
+                f"G={GEMMA2_HEADS[1]} dh={GEMMA2_HEADS[2]} window={window} "
+                f"qpos={qpos} q x{hot:g}"))
         del q, k, v
     return worst
 
@@ -2657,12 +2761,12 @@ def init_mamba2(torch, dev):
     return cfg, params
 
 
-def profile_prefill(torch, prefill, params, tokens) -> None:
+def profile_prefill(torch, prefill, params, tokens, kernel="ssd_scan") -> None:
     """Where one (warm) prefill's time goes."""
     b, s = tokens.shape
     profile_run(torch, f"profiled prefill B={b} S={s}",
                 lambda _k: prefill(params, {"tokens": tokens}), 1, "prefill",
-                "ssd_scan")
+                kernel)
 
 
 def run_mamba2(torch, dev, cfg, params) -> dict:
@@ -2763,94 +2867,208 @@ def serve_requests(cfg, gen: int):
                     .astype(np.int32), max_new=gen) for i in range(8)]
 
 
+def timed_prefill(torch, dev, cfg, params, gen, n_ssd: int) -> int:
+    """A warm prefill at ``ARCH_PREFILL`` through ``make_prefill_step``,
+    with the launch counts zeroed just before it and read just after (the
+    arch's Mamba2 mixers launch kernel 5 once each, nothing launches kernel
+    6), then a profiled one.  Returns kernel 5's launches."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+    counts = cuda_lib.LAUNCHES
+    prefill = make_prefill_step(cfg)
+    b, s = ARCH_PREFILL
+    warm = cfg.ssm.chunk if n_ssd else 64
+    prefill(params, {"tokens": torch.zeros((1, warm), dtype=torch.long,
+                                           device=dev)})
+    tokens = torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"  prefill B={b} S={s}: {wall:.3f} s wall, {b * s / wall:,.0f} "
+          f"tokens/s, ssd_scan launches {counts['ssd_scan']} ({n_ssd} "
+          f"Mamba2 mixers), swa_decode {counts['swa_decode']}; max|logits| "
+          f"{float(logits.abs().max()):.3f}")
+    check(tuple(logits.shape) == (b, s, T.padded_vocab(cfg))
+          and bool(torch.isfinite(logits).all()),
+          f"prefill logits of shape {tuple(logits.shape)}, or not finite")
+    check(counts["ssd_scan"] == n_ssd and counts["swa_decode"] == 0,
+          f"prefill: {counts['ssd_scan']} ssd_scan launches, not {n_ssd}")
+    del logits
+    profile_prefill(torch, prefill, params, tokens,
+                    "ssd_scan" if n_ssd else None)
+    return counts["ssd_scan"]
+
+
+@contextlib.contextmanager
+def recorded_routes(record: list):
+    """Inside the block, every MoE call's routing appended to ``record``:
+    (its top-k experts, each row's sorted, [T, k]; the k-th minus the
+    (k+1)-th router probability, [T]), on the device."""
+    from repro_torch.models import moe
+
+    def wrapper(route):
+        def recording(params, x, cfg):
+            logits, probs, gates, idx = route(params, x, cfg)
+            top = probs.topk(cfg.top_k + 1, dim=-1).values
+            record.append((idx.sort(-1).values,
+                           top[:, cfg.top_k - 1] - top[:, cfg.top_k]))
+            return logits, probs, gates, idx
+        return recording
+
+    with wrapped(moe, "route", wrapper):
+        yield
+
+
+def first_route_flips(torch, fwd: list, dec: list, b: int, s: int) -> list:
+    """Each batch row's first position whose experts decode chose apart
+    from forward's at some MoE layer (``s`` where none), from the routes
+    ``recorded_routes`` took: forward's one call a layer over all B S
+    rows, decode's one a layer a step.  Prints every row's first flip
+    (its layer and both runs' margins, which must be under
+    ``FLIP_MARGIN``) and the count of flips after it, which that first
+    one's changed state may cause."""
+    n_moe = len(fwd)
+    check(len(dec) == s * n_moe, f"{len(dec)} decode routes, not {s} x {n_moe}")
+    f_idx = torch.stack([r[0] for r in fwd]).reshape(n_moe, b, s, -1)
+    f_m = torch.stack([r[1] for r in fwd]).reshape(n_moe, b, s)
+    d_idx = torch.stack([r[0] for r in dec]).reshape(s, n_moe, b, -1).permute(1, 2, 0, 3)
+    d_m = torch.stack([r[1] for r in dec]).reshape(s, n_moe, b).permute(1, 2, 0)
+    flips = sorted((row, pos, layer) for layer, row, pos in
+                   (f_idx != d_idx).any(-1).nonzero().tolist())
+    firsts = []
+    for row in range(b):
+        mine = [f for f in flips if f[0] == row]
+        if not mine:
+            firsts.append(s)
+            print(f"  routes, row {row}: no flip over {s} positions x {n_moe} MoE layers")
+            continue
+        _, pos, layer = mine[0]
+        fm, dm = float(f_m[layer, row, pos]), float(d_m[layer, row, pos])
+        print(f"  routes, row {row}: first flip at position {pos}, MoE layer "
+              f"{layer}: margin {fm:.3e} in forward, {dm:.3e} in decode (limit "
+              f"{FLIP_MARGIN:g}); {len(mine) - 1} flips after it")
+        check(max(fm, dm) < FLIP_MARGIN,
+              f"row {row}: a route flip at position {pos} with margin {max(fm, dm)}")
+        firsts.append(pos)
+    return firsts
+
+
 def run_arch(torch, dev, cfg) -> dict:
     """One arch's serving path at full width (depth as ``cfg`` has it):
-    the parameters from a seeded generator, zamba2's prefill, teacher-
-    forced decode against forward, ``BatchedServer`` and a profiled decode
-    step, each with the launch counts zeroed just before it and read just
-    after.  Returns the main path's launches of kernels 5 and 6."""
+    the parameters from a seeded generator, the prefill of zamba2 and the
+    MoE archs, teacher-forced decode against forward, ``BatchedServer``
+    and a profiled decode step, each with the launch counts zeroed just
+    before it and read just after.  An MoE arch's self-check runs at
+    capacity factor E / k (C >= T: forward drops nothing, as decode at T =
+    B drops nothing) and compares each row up to its first route flip;
+    its forward at the arch's own capacity factor prints the dropped
+    share.  Returns the main path's launches of kernels 5 and 6."""
     from repro_torch.kernels import cuda_lib
     from repro_torch.launch.serve import BatchedServer
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import moe
     from repro_torch.models import transformer as T
     from repro_torch.models import zoo
     from repro_torch.tree import tree_leaves
     counts = cuda_lib.LAUNCHES
-    kinds = [k[0] for k in T.layer_plan(cfg).all_layers()]
-    n_attn = sum(k in ("attn", "gattn", "shared_attn") for k in kinds)
-    n_ssd = sum(k in ("mamba", "shared_attn") for k in kinds)
+    kinds = T.layer_plan(cfg).all_layers()
+    n_attn = sum(k[0] in ("attn", "gattn", "shared_attn") for k in kinds)
+    n_ssd = sum(k[0] in ("mamba", "shared_attn") for k in kinds)
+    n_moe = sum(k[1] == "moe" for k in kinds)
     a = cfg.attn
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev)
     torch.cuda.synchronize()
     n = sum(x.numel() for x in tree_leaves(params))
+    blocks = (f"{sum(k[0] == 'mla' for k in kinds)} MLA (kv_lora "
+              f"{cfg.mla.kv_lora_rank}, {a.n_heads} heads)" if cfg.mla else
+              f"{n_attn} attention ({a.n_heads} heads over {a.n_kv_heads} KV, "
+              f"dh {a.d_head}, window {a.window}, softcap {a.logit_softcap})")
+    if cfg.moe:
+        blocks += (f", {n_moe} MoE ({cfg.moe.n_experts} experts top-"
+                   f"{cfg.moe.top_k}, {cfg.moe.n_shared} shared, capacity "
+                   f"factor {cfg.moe.capacity_factor})")
     print(f"  {cfg.name}: {n:,} parameters ({n * 4 / 1e9:.2f} GB float32) on the "
           f"card in {time.perf_counter() - t0:.3f} s; {cfg.n_layers} layers, "
-          f"{n_attn} attention ({a.n_heads} heads over {a.n_kv_heads} KV, dh "
-          f"{a.d_head}, window {a.window}, softcap {a.logit_softcap}), "
-          f"{n_ssd} Mamba2; d_model {cfg.d_model}, vocab {cfg.vocab:,}")
+          f"{blocks}, {n_ssd} Mamba2; d_model {cfg.d_model}, vocab {cfg.vocab:,}")
     check(n == zoo.param_count(cfg), f"{n} parameters, not {zoo.param_count(cfg)}")
-    prefill, step = make_prefill_step(cfg), make_serve_step(cfg)
+    if cfg.moe:
+        active = zoo.param_count(cfg, active_only=True)
+        print(f"  active parameters (zoo.param_count(active_only=True): the "
+              f"routed experts at top_k / n_experts): {active:,}")
     got = {"swa_decode": 0, "ssd_scan": 0}
     gen = torch.Generator(device=dev).manual_seed(1)
-
-    if n_ssd:                       # zamba2: a prefill through kernel 5
-        b, s = ZAMBA2_PREFILL
-        prefill(params, {"tokens": torch.zeros((1, cfg.ssm.chunk), dtype=torch.long,
-                                               device=dev)})     # warm-up
-        tokens = torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen)
-        torch.cuda.synchronize()
-        cuda_lib.reset_launch_counts()
-        t0 = time.perf_counter()
-        logits = prefill(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        print(f"  prefill B={b} S={s}: {wall:.3f} s wall, {b * s / wall:,.0f} "
-              f"tokens/s, ssd_scan launches {counts['ssd_scan']} ({n_ssd} "
-              f"Mamba2 mixers), swa_decode {counts['swa_decode']}; max|logits| "
-              f"{float(logits.abs().max()):.3f}")
-        check(tuple(logits.shape) == (b, s, T.padded_vocab(cfg))
-              and bool(torch.isfinite(logits).all()),
-              f"prefill logits of shape {tuple(logits.shape)}, or not finite")
-        check(counts["ssd_scan"] == n_ssd and counts["swa_decode"] == 0,
-              f"prefill: {counts['ssd_scan']} ssd_scan launches, not {n_ssd}")
-        got["ssd_scan"] += counts["ssd_scan"]
-        del logits
-        profile_prefill(torch, prefill, params, tokens)
+    if n_ssd or cfg.moe:
+        got["ssd_scan"] += timed_prefill(torch, dev, cfg, params, gen, n_ssd)
 
     # teacher-forced decode (kernel 6) against forward (plain attention)
     b, s = ARCH_SELF_CHECK
     tokens = torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen)
+    check_cfg = cfg if not cfg.moe else dataclasses.replace(
+        cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    fwd_routes, dec_routes = [], []
     torch.cuda.synchronize()
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
-    full = prefill(params, {"tokens": tokens})
+    with recorded_routes(fwd_routes):
+        full, aux = T.forward(check_cfg, params, {"tokens": tokens}, remat=False)
     check(counts["ssd_scan"] == n_ssd, f"forward: {counts['ssd_scan']} "
           f"ssd_scan launches, not {n_ssd}")
     got["ssd_scan"] += counts["ssd_scan"]
-    cache = T.init_cache(cfg, b, s, device=dev)
-    err = torch.zeros((), device=dev)
+    step = make_serve_step(check_cfg)
+    cache = T.init_cache(check_cfg, b, s, device=dev)
+    errs = []
     torch.cuda.synchronize()
     cuda_lib.reset_launch_counts()
     t1 = time.perf_counter()
-    for i in range(s):
-        logits, cache = step(params, cache, {"tokens": tokens[:, i:i + 1], "pos": i})
-        err = torch.maximum(err, (logits[:, 0, :cfg.vocab]
-                                  - full[:, i, :cfg.vocab]).abs().max())
-    err = float(err)
+    with recorded_routes(dec_routes):
+        for i in range(s):
+            logits, cache = step(params, cache, {"tokens": tokens[:, i:i + 1],
+                                                 "pos": i})
+            errs.append((logits[:, 0, :cfg.vocab]
+                         - full[:, i, :cfg.vocab]).abs().amax(-1))
+    errs = torch.stack(errs, 1)                   # [B, S]
     t2 = time.perf_counter()
     check(bool(torch.isfinite(full).all()), "non-finite forward logits")
+    compared = ""
+    if cfg.moe:
+        c = moe.capacity(b * s, check_cfg.moe)
+        print(f"  self-check at capacity factor {check_cfg.moe.capacity_factor:g} "
+              f"(C = {c} slots an expert for T = {b * s}): forward's dropped share "
+              f"{float(aux[2]):g}, load balance {float(aux[0]):.4f}, z-loss "
+              f"{float(aux[1]):.4f} (summed over {n_moe} MoE layers)")
+        check(float(aux[2]) == 0.0, f"forward at C = {c} dropped tokens")
+        upto = first_route_flips(torch, fwd_routes, dec_routes, b, s)
+        share = sum(upto) / (b * s)
+        compared = f", compared up to each row's first route flip ({upto}: {share:.3f} of the positions)"
+        check(share >= COMPARED_SHARE, f"only {share:.3f} of the positions "
+              f"compared before the first route flips")
+        errs = torch.cat([errs[r, :p] for r, p in enumerate(upto)])
+    err = float(errs.max())
     print(f"  teacher-forced decode vs forward, B={b} S={s}: max|logits| "
           f"{float(full[..., :cfg.vocab].abs().max()):.3f}, max error {err:.3e} "
-          f"(tol {SELF_CHECK_TOL:g}) in {t2 - t0:.3f} s ({(t2 - t1) / s * 1e3:.3f} "
-          f"ms a step); swa_decode launches {counts['swa_decode']} ({s} x {n_attn})")
+          f"(tol {SELF_CHECK_TOL:g}){compared} in {t2 - t0:.3f} s "
+          f"({(t2 - t1) / s * 1e3:.3f} ms a step); swa_decode launches "
+          f"{counts['swa_decode']} ({s} x {n_attn})")
     check(err <= SELF_CHECK_TOL, f"decode differs from forward by {err}")
     check(counts["swa_decode"] == s * n_attn and counts["ssd_scan"] == 0,
           f"decode: {counts['swa_decode']} swa_decode launches, not {s} x "
           f"{n_attn}, and {counts['ssd_scan']} ssd_scan")
     got["swa_decode"] += counts["swa_decode"]
-    del full, cache, logits
+    del full, cache, logits, fwd_routes, dec_routes
+    if cfg.moe:                      # the arch's own capacity factor drops
+        _, aux = T.forward(cfg, params, {"tokens": tokens}, remat=False)
+        print(f"  forward at the arch's capacity factor "
+              f"{cfg.moe.capacity_factor:g} (C = {moe.capacity(b * s, cfg.moe)} "
+              f"slots an expert for T = {b * s}): dropped share "
+              f"{float(aux[2]) / n_moe:.5f} of the (token, slot) pairs, mean "
+              f"over {n_moe} MoE layers")
 
     gen_len = SERVE_GENS[0]
     reqs = serve_requests(cfg, gen_len)
@@ -2859,10 +3077,11 @@ def run_arch(torch, dev, cfg) -> dict:
     cuda_lib.reset_launch_counts()
     stats = server.run(reqs)
     steps = stats["decode_steps"]
+    step_ms = stats["wall_s"] / steps * 1e3
     print(f"  BatchedServer batch 4, cache_len {64 + gen_len}, 8 requests x "
           f"{gen_len} new tokens: {stats['tokens']} tokens in "
           f"{stats['wall_s']:.3f} s, {stats['tok_per_s']:.1f} tok/s, {steps} "
-          f"decode steps, {stats['wall_s'] / steps * 1e3:.3f} ms per step; "
+          f"decode steps, {step_ms:.3f} ms per step; "
           f"swa_decode launches {counts['swa_decode']} ({steps} x {n_attn})")
     print(f"  completions (first 8 tokens): {stats['completions']}")
     check(stats["requests"] == 8 and all(len(r.out) == gen_len for r in reqs)
@@ -2872,17 +3091,25 @@ def run_arch(torch, dev, cfg) -> dict:
           f"{cfg.name}: {counts['swa_decode']} swa_decode launches, not "
           f"{steps} x {n_attn}")
     got["swa_decode"] += counts["swa_decode"]
+    if cfg.moe:       # the dense dispatch reads every expert at every step
+        bound = n * 4 / HBM_BYTES_PER_S * 1e3
+        print(f"  a decode step reads every weight ({n * 4 / 1e9:.2f} GB: the "
+              f"dense dispatch runs all {cfg.moe.n_experts} experts' products "
+              f"on their 8 slots): bound {bound:.3f} ms at "
+              f"{HBM_BYTES_PER_S / 1e12:g} TB/s; the served step at "
+              f"{bound / step_ms:.3f} of it")
     last = max(len(r.prompt) for r in reqs[4:]) + gen_len
     profile_decode(torch, dev, cfg, params, server.cache, last, server.b,
-                   "swa_decode")
+                   "swa_decode" if n_attn else None)
     return got
 
 
 def run_archs(torch, dev, card_line: str) -> dict:
     """Phase [13]: h2o-danube-3-4b, phi3-medium-14b, gemma2-27b (24 of 46
-    layers) and zamba2-7b at full width, one after the other, each's
-    weights freed before the next's.  Returns the launches of kernels 5
-    and 6 on their main paths."""
+    layers), zamba2-7b, deepseek-v2-lite-16b and llama4-scout-17b-a16e (4
+    of 48 layers) at full width, one after the other, each's weights freed
+    before the next's.  Returns the launches of kernels 5 and 6 on their
+    main paths."""
     import gc
     from repro_torch.configs import get_arch
     t_phase = time.perf_counter()
@@ -3892,6 +4119,8 @@ def main() -> int:
     rec = time_kernels(torch, dev, sass)
     rec["swa_decode"] = time_decode(torch, dev)
     time_softcap_decode(torch, dev)
+    # kernel 6 at llama4-scout's odd group, beside its record at gemma3's
+    rec["swa_decode"]["at_g5"] = time_llama4_decode(torch, dev)
     rec["ssd_scan"], ssd_ms = time_ssd(torch, dev)
     rec["ssd_scan_bwd"] = time_ssd_bwd(torch, dev)
     time_round_parts(torch, dev)
@@ -3963,8 +4192,10 @@ def main() -> int:
           flush=True)
     run_analysis(torch, dev, card_line)
 
-    print("[13] the remaining attention archs at full width: h2o-danube-3-4b, "
-          "phi3-medium-14b, gemma2-27b (24 layers), zamba2-7b" + at(), flush=True)
+    print("[13] the remaining archs at full width: h2o-danube-3-4b, "
+          "phi3-medium-14b, gemma2-27b (24 layers), zamba2-7b, "
+          "deepseek-v2-lite-16b, llama4-scout-17b-a16e (4 layers)" + at(),
+          flush=True)
     for name, n in run_archs(torch, dev, card_line).items():
         out["launches"][name] += n
 

@@ -13,8 +13,8 @@ stacked period parameters, plus an unrolled prefix and tail.  Block kinds:
                   all its occurrences
 
 Each non-mamba layer carries an MLP ("dense" SwiGLU/GeGLU or "moe").  The
-port runs the "attn"/"gattn" blocks with dense MLPs and the "mamba" blocks
-so far (``models/transformer.py`` says which slice brings the others).
+port runs every decoder-only block; the whisper encoder and the vision
+prefix wait for their slices (``models/transformer.py`` says which).
 """
 from __future__ import annotations
 
@@ -124,6 +124,12 @@ class ArchConfig:
         from repro_torch.models.zoo import param_count   # lazy: avoids cycle
         return param_count(self)
 
+    def n_active_params(self) -> int:
+        """Parameters a token reads: the routed experts at top_k /
+        n_experts, everything else whole."""
+        from repro_torch.models.zoo import param_count
+        return param_count(self, active_only=True)
+
     def reduced(self, n_layers: int = 2, d_model: int = 256,
                 vocab: int = 512) -> "ArchConfig":
         """Smoke-test variant of the same family: <=2 layers, d_model<=512,
@@ -143,6 +149,8 @@ class ArchConfig:
                 top_k=min(2, moe.top_k), d_ff_expert=d_model * 2,
                 d_ff_shared=d_model * 2 if moe.n_shared else 0,
                 first_dense=min(1, moe.first_dense),
+                # capacity_factor 8: no token is dropped, so decode (T = B)
+                # and forward route alike; drops have their own tests
                 capacity_factor=8.0)
         mla = self.mla
         if mla is not None:

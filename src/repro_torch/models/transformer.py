@@ -12,15 +12,21 @@ sharding constraints have no counterpart on one device).
 Embedding tables are padded to a multiple of 256 rows; logits beyond the
 true vocab are masked to the dtype's minimum at decode.
 
-Block kinds (configs/base.py): the port runs ``attn`` and ``gattn`` with
-dense MLPs (gemma2's with both logit softcaps), ``mamba`` (Mamba2, no
-MLP) and ``shared_attn`` (zamba2): an attention+MLP block whose
-parameters, ``params["shared_attn"]``, are shared across all its
-occurrences, then the layer's own Mamba2 mixer.  As in the reference,
-each ``shared_attn`` layer also carries an ``ln2`` and ``mlp`` of its own
-(its MLP kind is "dense") that nothing reads.  ``mla``, MoE MLPs, the
-whisper encoder and the vision prefix raise ``NotImplementedError``
-naming the slice that brings them.
+Block kinds (configs/base.py): the port runs ``attn`` and ``gattn``
+(gemma2's with both logit softcaps), ``mla`` (DeepSeek's latent
+attention, ``models/mla.py``), each with a dense or an MoE MLP
+(``models/moe.py``), ``mamba`` (Mamba2, no MLP) and ``shared_attn``
+(zamba2): an attention+MLP block whose parameters,
+``params["shared_attn"]``, are shared across all its occurrences, then
+the layer's own Mamba2 mixer.  As in the reference, each ``shared_attn``
+layer also carries an ``ln2`` and ``mlp`` of its own (its MLP kind is
+"dense") that nothing reads.  The whisper encoder and the vision prefix
+raise ``NotImplementedError`` naming the slice that brings them.
+
+Each layer's forward returns ``(x, aux)``: the MoE's (load balance,
+z-loss, dropped share), zeros for the other MLPs; ``forward`` sums them
+over every layer.  Decode runs the MoE on the step's [B, d] rows (T = B),
+whose capacity (at least 8 slots an expert) drops no token for B <= 8.
 """
 from __future__ import annotations
 
@@ -35,16 +41,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = dict
-LayerKind = tuple  # (mixer, mlp) e.g. ("attn", "dense")
+LayerKind = tuple  # (mixer, mlp) e.g. ("attn", "dense"), ("mla", "moe")
 
 VOCAB_PAD = 256
 
 _NOT_PORTED = {
-    "mla": "the deepseek-v2-lite-16b slice",
-    "moe": "the MoE slice (deepseek-v2-lite-16b, llama4-scout)",
     "encoder": "the whisper-large-v3 slice",
     "vision": "the internvl2-2b slice",
 }
@@ -56,24 +62,12 @@ def _not_ported(what: str):
         f"{_NOT_PORTED[what]}")
 
 
-def _check_kind(kind: LayerKind) -> None:
-    """Raise unless the layer is an attention block with a dense MLP, a
-    Mamba2 block or a shared-attention block."""
-    mixer, mlp = kind
-    if mixer not in ("attn", "gattn", "mamba", "shared_attn"):
-        raise _not_ported(mixer)
-    if mlp not in ("dense", "none"):
-        raise _not_ported(mlp)
-
-
 def _check_supported(cfg: ArchConfig) -> None:
-    """Raise for the blocks and frontends this slice does not run."""
+    """Raise for the frontends this slice does not run."""
     if cfg.enc_layers:
         raise _not_ported("encoder")
     if cfg.frontend is not None:
         raise _not_ported("vision" if cfg.frontend.kind == "vision" else "encoder")
-    for kind in layer_plan(cfg).all_layers():
-        _check_kind(kind)
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -131,18 +125,26 @@ def _attn_spec(cfg: ArchConfig, mixer: str) -> L.AttnLayerSpec:
 
 
 def init_layer(gen, cfg: ArchConfig, kind: LayerKind, device=None) -> Params:
-    _check_kind(kind)
     mixer, mlp = kind
     if mixer in ("mamba", "shared_attn"):
         p = {"ln": L.rmsnorm_init(cfg.d_model, device),
              "mamba": M.mamba_init(gen, cfg.d_model, cfg.ssm, device)}
-    else:
+    elif mixer == "mla":
+        p = {"ln1": L.rmsnorm_init(cfg.d_model, device),
+             "mla": MLA.mla_init(gen, cfg.d_model, cfg.attn.n_heads, cfg.mla,
+                                 device)}
+    elif mixer in ("attn", "gattn"):
         p = {"ln1": L.rmsnorm_init(cfg.d_model, device),
              "attn": L.attn_init(gen, cfg.d_model, _attn_spec(cfg, mixer),
                                  device)}
+    else:
+        raise ValueError(mixer)
     if mlp == "dense":      # a shared_attn layer's own MLP is never read
         p["ln2"] = L.rmsnorm_init(cfg.d_model, device)
         p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, device)
+    elif mlp == "moe":
+        p["ln2"] = L.rmsnorm_init(cfg.d_model, device)
+        p["moe"] = MOE.moe_init(gen, cfg.d_model, cfg.moe, device)
     return p
 
 
@@ -164,22 +166,39 @@ class FwdCtx(NamedTuple):
 
 
 def apply_layer(params: Params, x: torch.Tensor, cfg: ArchConfig,
-                kind: LayerKind, ctx: FwdCtx) -> torch.Tensor:
-    _check_kind(kind)
-    if kind[0] == "shared_attn":
+                kind: LayerKind, ctx: FwdCtx) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, aux): aux the MoE's (load balance, z-loss, dropped
+    share), zeros for the other MLPs."""
+    mixer, mlp = kind
+    aux = torch.zeros((3,), dtype=torch.float32, device=x.device)
+    if mixer == "shared_attn":
         sp = ctx.shared
         x = x + L.attn_apply(sp["attn"], L.rmsnorm(sp["ln1"], x),
                              ctx.positions, _attn_spec(cfg, "attn"), ctx.q_chunk)
         x = x + L.mlp_apply(sp["mlp"], L.rmsnorm(sp["ln2"], x), cfg.mlp_act)
         return x + M.mamba_apply(params["mamba"], L.rmsnorm(params["ln"], x),
-                                 cfg.ssm)
-    if kind[0] == "mamba":
+                                 cfg.ssm), aux
+    if mixer == "mamba":
         return x + M.mamba_apply(params["mamba"], L.rmsnorm(params["ln"], x),
-                                 cfg.ssm)
-    spec = _attn_spec(cfg, kind[0])
-    x = x + L.attn_apply(params["attn"], L.rmsnorm(params["ln1"], x),
-                         ctx.positions, spec, ctx.q_chunk)
-    return x + L.mlp_apply(params["mlp"], L.rmsnorm(params["ln2"], x), cfg.mlp_act)
+                                 cfg.ssm), aux
+    if mixer == "mla":
+        x = x + MLA.mla_apply(params["mla"], L.rmsnorm(params["ln1"], x),
+                              ctx.positions, cfg.attn.n_heads, cfg.mla,
+                              cfg.attn.rope_theta, ctx.q_chunk)
+    else:
+        x = x + L.attn_apply(params["attn"], L.rmsnorm(params["ln1"], x),
+                             ctx.positions, _attn_spec(cfg, mixer), ctx.q_chunk)
+    if mlp == "dense":
+        x = x + L.mlp_apply(params["mlp"], L.rmsnorm(params["ln2"], x), cfg.mlp_act)
+    elif mlp == "moe":
+        b, s, d = x.shape
+        y, moe_aux = MOE.moe_apply(params["moe"],
+                                   L.rmsnorm(params["ln2"], x).reshape(b * s, d),
+                                   cfg.moe, cfg.mlp_act)
+        x = x + y.reshape(b, s, d)
+        aux = torch.stack([moe_aux.load_balance, moe_aux.z_loss,
+                           moe_aux.dropped_frac])
+    return x, aux
 
 
 # ----------------------------------------------------------------- model
@@ -289,29 +308,33 @@ def forward(cfg: ArchConfig, params: Params, batch: dict,
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     ctx = FwdCtx(positions=positions, shared=params.get("shared_attn"),
                  q_chunk=q_chunk)
+    aux_total = torch.zeros((3,), dtype=torch.float32, device=x.device)
     for lp, kind in zip(params.get("prefix", []), plan.prefix):
-        x = apply_layer(lp, x, cfg, kind, ctx)
+        x, aux = apply_layer(lp, x, cfg, kind, ctx)
+        aux_total = aux_total + aux
 
     def unit(x, unit_params):
+        aux_u = torch.zeros((3,), dtype=torch.float32, device=x.device)
         for j, kind in enumerate(plan.unit):
-            x = apply_layer(unit_params[f"l{j}"], x, cfg, kind, ctx)
-        return x
+            x, aux = apply_layer(unit_params[f"l{j}"], x, cfg, kind, ctx)
+            aux_u = aux_u + aux
+        return x, aux_u
 
     if plan.reps:
         body = _remat(unit, remat) if torch.is_grad_enabled() else unit
         for unit_params in _units(params["stack"], plan.reps):
-            x = body(x, unit_params)
+            x, aux = body(x, unit_params)
+            aux_total = aux_total + aux
     for lp, kind in zip(params.get("tail", []), plan.tail):
-        x = apply_layer(lp, x, cfg, kind, ctx)
-    aux = torch.zeros((3,), dtype=torch.float32, device=x.device)
-    return _unembed(cfg, params, x), aux     # logits over padded_vocab(cfg) columns
+        x, aux = apply_layer(lp, x, cfg, kind, ctx)
+        aux_total = aux_total + aux
+    return _unembed(cfg, params, x), aux_total   # logits over padded_vocab(cfg) columns
 
 
 # ------------------------------------------------------------------ decode
 
 def init_layer_cache(cfg: ArchConfig, kind: LayerKind, batch: int,
                      cache_len: int, dtype=torch.float32, device=None) -> dict:
-    _check_kind(kind)
     if kind[0] == "shared_attn":     # one ring per occurrence of the block
         return {"mamba": M.mamba_cache_init(batch, cfg.d_model, cfg.ssm, dtype,
                                             device),
@@ -321,6 +344,9 @@ def init_layer_cache(cfg: ArchConfig, kind: LayerKind, batch: int,
     if kind[0] == "mamba":
         return {"mamba": M.mamba_cache_init(batch, cfg.d_model, cfg.ssm, dtype,
                                             device)}
+    if kind[0] == "mla":
+        return {"mla": MLA.mla_cache_init(batch, cache_len, cfg.mla, dtype,
+                                          device)}
     spec = _attn_spec(cfg, kind[0])
     return {"kv": L.kv_cache_init(batch, cache_len, spec, dtype, device)}
 
@@ -350,8 +376,8 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
 def decode_layer(params: Params, x: torch.Tensor, cfg: ArchConfig,
                  kind: LayerKind, entry: dict, pos: int,
                  shared: Optional[Params] = None):
-    _check_kind(kind)
-    if kind[0] == "shared_attn":
+    mixer, mlp = kind
+    if mixer == "shared_attn":
         y, kv = L.attn_decode_step(shared["attn"], L.rmsnorm(shared["ln1"], x),
                                    pos, entry["shared_kv"],
                                    _attn_spec(cfg, "attn"))
@@ -361,16 +387,30 @@ def decode_layer(params: Params, x: torch.Tensor, cfg: ArchConfig,
         y, mc = M.mamba_decode_step(params["mamba"], L.rmsnorm(params["ln"], x),
                                     entry["mamba"], cfg.ssm)
         return x + y, {"mamba": mc, "shared_kv": kv}
-    if kind[0] == "mamba":
+    if mixer == "mamba":
         y, mc = M.mamba_decode_step(params["mamba"], L.rmsnorm(params["ln"], x),
                                     entry["mamba"], cfg.ssm)
         return x + y, {"mamba": mc}
-    spec = _attn_spec(cfg, kind[0])
-    y, kv = L.attn_decode_step(params["attn"], L.rmsnorm(params["ln1"], x),
-                               pos, entry["kv"], spec)
+    if mixer == "mla":
+        y, c = MLA.mla_decode_step(params["mla"], L.rmsnorm(params["ln1"], x),
+                                   pos, entry["mla"], cfg.attn.n_heads,
+                                   cfg.mla, cfg.attn.rope_theta)
+        new_entry = {"mla": c}
+    else:
+        y, kv = L.attn_decode_step(params["attn"], L.rmsnorm(params["ln1"], x),
+                                   pos, entry["kv"], _attn_spec(cfg, mixer))
+        new_entry = {"kv": kv}
     x = x + y
-    x = x + L.mlp_apply(params["mlp"], L.rmsnorm(params["ln2"], x), cfg.mlp_act)
-    return x, {"kv": kv}
+    if mlp == "dense":
+        x = x + L.mlp_apply(params["mlp"], L.rmsnorm(params["ln2"], x),
+                            cfg.mlp_act)
+    elif mlp == "moe":      # T = B rows: at B <= 8 no token is dropped
+        b = x.shape[0]
+        y, _ = MOE.moe_apply(params["moe"],
+                             L.rmsnorm(params["ln2"], x).reshape(b, -1),
+                             cfg.moe, cfg.mlp_act)
+        x = x + y.reshape(b, 1, -1)
+    return x, new_entry
 
 
 def decode_step(cfg: ArchConfig, params: Params, cache: dict,

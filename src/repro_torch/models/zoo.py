@@ -1,5 +1,5 @@
-"""Model-zoo API, as ``repro.models.zoo``: parameter counting, the loss
-and batch construction for the blocks the port runs.
+"""Model-zoo API, as ``repro.models.zoo``: parameter counting (all or
+active), the loss and batch construction for the blocks the port runs.
 
 The FL integration: ``lm_loss`` takes per-example ``loss_weights`` that
 encode alpha_i * m_i of the paper's eq. (4), so the gradient of the
@@ -12,14 +12,24 @@ import torch
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves_with_path
 
 
-def param_count(cfg: ArchConfig) -> int:
+def param_count(cfg: ArchConfig, active_only: bool = False) -> int:
     """Parameter count from the parameter tree's shapes, built on the
-    "meta" device (no allocation)."""
+    "meta" device (no allocation).
+
+    active_only: the routed experts' leaves (under an ``"experts"`` key)
+    counted at top_k / n_experts, leaf by leaf (the standard "activated
+    params" figure; shared experts count whole)."""
     shapes = T.init_params(cfg, torch.Generator(), device="meta")
-    return sum(int(np.prod(leaf.shape)) for leaf in tree_leaves(shapes))
+    total = 0
+    for path, leaf in tree_leaves_with_path(shapes):
+        n = int(np.prod(leaf.shape))
+        if active_only and cfg.moe is not None and "experts" in path:
+            n = int(n * cfg.moe.top_k / cfg.moe.n_experts)
+        total += n
+    return total
 
 
 def grad_size_bits(cfg: ArchConfig, bits_per_param: int = 32) -> float:
@@ -35,7 +45,7 @@ def lm_loss(cfg: ArchConfig, params, batch: dict,
     reference's: the float32 log-softmax over all ``padded_vocab``
     columns, -100 labels masked, each example's mean over its valid
     tokens, then ``sum(per_example * loss_weights)`` (else the mean), plus
-    the aux terms (zeros for the dense blocks).
+    the MoE's aux terms (summed over its layers; zeros without one).
 
     batch: tokens [B,S], labels [B,S] (-100 = masked), optional
     loss_weights [B].  Returns (loss, {"ce", "load_balance", "z_loss",

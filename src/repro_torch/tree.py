@@ -34,3 +34,17 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_leaves_with_path(tree, path: tuple = ()) -> list:
+    """``(path, leaf)`` pairs in ``tree_leaves``' order; a path is the
+    tuple of dict keys, list indices and NamedTuple field names from the
+    root to the leaf."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree)
+                for pair in tree_leaves_with_path(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        names = tree._fields if _is_namedtuple(tree) else range(len(tree))
+        return [pair for name, v in zip(names, tree)
+                for pair in tree_leaves_with_path(v, path + (name,))]
+    return [(path, tree)]

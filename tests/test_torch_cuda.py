@@ -539,6 +539,23 @@ def test_swa_decode_streams_keep_their_own_counters(dev):
     assert all(torch.equal(alone, o) for o in outs)
 
 
+# llama4-scout's heads: 8 KV heads, G 5 (an odd group: the MAXG = 8
+# instance), dh 128; the serving cache of 88 and the local window of 8,192
+@pytest.mark.parametrize("w,qpos,nsplit", [(88, 60, 1), (88, 150, 3),
+                                           (8192, 16383, 1), (8192, 9000, 7),
+                                           (8192, 16383, 64)])
+@pytest.mark.parametrize("window", [8192, None])
+def test_swa_decode_llama4_heads_match_plain_version(dev, w, qpos, nsplit,
+                                                     window):
+    q, k, v = _decode_case(dev, 4, w, 8, 5, 128, w + nsplit)
+    pos = _ring_positions(w, qpos, dev)
+    plain = swa_ref.swa_decode_ref(q, k, v, pos, qpos, window=window)
+    torch.testing.assert_close(swa_ops._launch(q, k, v, pos, qpos, window, nsplit),
+                               plain, rtol=DECODE_TOL, atol=DECODE_TOL)
+    torch.testing.assert_close(swa_ops.swa_decode(q, k, v, pos, qpos, window=window),
+                               plain, rtol=DECODE_TOL, atol=DECODE_TOL)
+
+
 def test_swa_decode_wrapper_checks_operands(dev):
     q, k, v = _decode_case(dev, 1, 8, 1, 4, 64, 0)
     pos = torch.arange(8, device=dev, dtype=torch.int32)
@@ -645,6 +662,49 @@ def test_reduced_archs_decode_on_the_card_matches_forward(dev, name, n_layers):
         torch.testing.assert_close(logits[:, 0], full[:, i], rtol=MODEL_TOL,
                                    atol=MODEL_TOL)
     assert cuda_lib.LAUNCHES["swa_decode"] == before + 160 * n_attn
+
+
+def _moe_variant(name, n_layers, g5):
+    cfg = ARCHS[name].reduced(n_layers=n_layers)
+    if g5:                        # 10 query heads over 2 KV heads: G = 5
+        cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+            cfg.attn, n_heads=10, n_kv_heads=2, d_head=32))
+    return cfg
+
+
+@pytest.mark.parametrize("name,n_layers,g5", [
+    ("deepseek-v2-lite-16b", 3, False), ("llama4-scout-17b-a16e", 8, False),
+    ("llama4-scout-17b-a16e", 8, True)])
+def test_reduced_moe_archs_on_the_card_match_the_cpu(dev, name, n_layers, g5):
+    """deepseek (MLA, MoE with shared experts) and llama4 (kernel 6 on its
+    local and global layers, at G = 1 and 5) reduced: forward's logits and
+    aux and 130 teacher-forced decode steps on the card against the same
+    on the CPU, at the CPU tests' 1e-4, after checking that the CPU's
+    routing margins exceed 1e-5 (``test_torch_moe_mla.py``)."""
+    cfg = _moe_variant(name, n_layers, g5)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = tree_map(lambda x: x.to(dev), params)
+    tokens = torch.randint(0, cfg.vocab, (2, 130),
+                           generator=torch.Generator().manual_seed(1))
+    routes = []
+    with chip_smoke.recorded_routes(routes):
+        full, aux = T.forward(cfg, params, {"tokens": tokens})
+    assert min(float(m.min()) for _, m in routes) > 1e-5
+    full_dev, aux_dev = T.forward(cfg, card, {"tokens": tokens.to(dev)})
+    torch.testing.assert_close(full_dev.cpu(), full, rtol=MODEL_TOL, atol=MODEL_TOL)
+    torch.testing.assert_close(aux_dev.cpu(), aux, rtol=MODEL_TOL, atol=MODEL_TOL)
+    cache = T.init_cache(cfg, 2, 130, device="cpu")
+    cache_dev = T.init_cache(cfg, 2, 130, device=dev)
+    n_attn = sum(k[0] in ("attn", "gattn") for k in T.layer_plan(cfg).all_layers())
+    before = cuda_lib.LAUNCHES["swa_decode"]
+    for i in range(130):
+        logits, cache = T.decode_step(cfg, params, cache, tokens[:, i:i + 1], i)
+        got, cache_dev = T.decode_step(cfg, card, cache_dev,
+                                       tokens[:, i:i + 1].to(dev), i)
+        torch.testing.assert_close(got.cpu(), logits, rtol=MODEL_TOL, atol=MODEL_TOL)
+    assert cuda_lib.LAUNCHES["swa_decode"] == before + 130 * n_attn
+    for a, b in zip(tree_leaves(cache_dev), tree_leaves(cache)):
+        torch.testing.assert_close(a.cpu(), b, rtol=MODEL_TOL, atol=MODEL_TOL)
 
 
 def test_batched_server_on_the_card_launches_the_kernel(dev):
